@@ -1,0 +1,72 @@
+"""Model descriptor for the port: the dense-path fields of `repro.configs.base.ModelConfig`.
+
+A copy, not an import: the port does not import the JAX package. Only the
+fields that the dense decoder path reads are kept. MoE, SSM and hybrid
+fields come with the slices that port those families; `attn_impl` and
+`attn_chunk` are not kept, because on CUDA prefill always runs the flash
+kernel and on the CPU its plain version.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense (the only family this port runs yet)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    norm: str = "rmsnorm"
+    act: str = "silu"
+    gated_mlp: bool = True
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int | None = None
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"  # activation compute dtype
+    param_dtype: str = "bfloat16"
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (the same values as the JAX `reduced()`)."""
+        small: dict[str, Any] = dict(
+            num_layers=min(self.num_layers, 2),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=32,
+            d_ff=256,
+            vocab_size=512,
+            sliding_window=16 if self.sliding_window else None,
+            param_dtype="float32",
+            dtype="float32",
+        )
+        small.update(overrides)
+        return replace(self, **small)

@@ -1,0 +1,144 @@
+"""GQA attention: prefill with a KV cache, and one-token decode over it.
+
+Port of the inference half of `repro.models.attention`. With `kernels=True`
+(the model's default) the q/k norms run through the RMSNorm kernel, prefill
+through the flash-attention kernel and decode through the flash-decode
+kernel; on CPU tensors those wrappers run their plain versions. With
+`kernels=False` the plain PyTorch path below runs on any device; it is the
+oracle the kernels are held to on the card.
+
+Caches keep JAX's layout, (B, W, Hkv, dh), so parity tests compare like with
+like; the kernels read them through strides. Unlike JAX, which returns new
+arrays, caches are updated IN PLACE (JAX donates them to the same effect).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models.layers import apply_rope, rms_head_norm
+
+NEG_INF = -1e30
+
+
+def _head_norm(scale: torch.Tensor, x: torch.Tensor, kernels: bool) -> torch.Tensor:
+    return rms_ops.rmsnorm(x, scale, eps=1e-6) if kernels else rms_head_norm(scale, x)
+
+
+def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 kernels: bool = True):
+    """x: (B, S, D) -> q (B,S,Hkv,G,dh), k/v (B,S,Hkv,dh), RoPE'd + qk-normed."""
+    B, S, _ = x.shape
+    Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).view(B, S, Hq, dh)
+    k = (x @ p["wk"].to(x.dtype)).view(B, S, Hkv, dh)
+    v = (x @ p["wv"].to(x.dtype)).view(B, S, Hkv, dh)
+    if cfg.qk_norm:
+        q = _head_norm(p["q_norm"], q, kernels)
+        k = _head_norm(p["k_norm"], k, kernels)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q.view(B, S, Hkv, Hq // Hkv, dh), k, v
+
+
+def _dense_attention(q, k, v, q_pos, k_pos, window):
+    """Plain O(S*T) attention. q: (B,S,Hkv,G,dh); k/v: (B,T,Hkv,dh)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+
+
+# ----------------------------------------------------------------- KV caching
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    shp = (batch, cache_len(cfg, max_len), cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shp, dtype=cfg.compute_dtype, device=device),
+        "v": torch.zeros(shp, dtype=cfg.compute_dtype, device=device),
+    }
+
+
+def prefill_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, max_len: int,
+                      cache: dict | None = None, kernels: bool = True):
+    """Full-sequence causal attention that also fills a decode-ready KV cache.
+
+    Token t lands in cache slot t (full) or t % W (ring buffer, SWA). `cache`,
+    if given, is a zeroed {"k", "v"} of (B, W, Hkv, dh) filled in place.
+    Returns (out (B, S, D), cache).
+    """
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos, kernels)
+    if kernels:
+        out = fa_ops.flash_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        out = _dense_attention(q, k, v, pos, pos, cfg.sliding_window)
+    out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype)
+
+    W = cache_len(cfg, max_len)
+    if cache is None:
+        cache = init_attn_cache(cfg, B, max_len, x.device)
+    if cfg.sliding_window is not None and S > W:
+        # keep the last W tokens, permuted into ring order (slot = t mod W)
+        tail_t = torch.arange(S - W, S, device=x.device)
+        slots = torch.argsort(tail_t % W)
+        cache["k"].copy_(k[:, tail_t][:, slots])
+        cache["v"].copy_(v[:, tail_t][:, slots])
+    elif S > W:
+        raise ValueError(f"prompt of {S} tokens does not fit a cache of {W}")
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    return out, cache
+
+
+def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, pos: int,
+                     kernels: bool = True):
+    """One-token decode. x: (B, 1, D); pos: host int index of the current token.
+
+    Writes the token's k/v into `cache` in place; returns (out (B, 1, D), cache).
+    """
+    B = x.shape[0]
+    Hq, dh = cfg.num_heads, cfg.head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, positions, kernels)
+
+    K, V = cache["k"], cache["v"]
+    W = K.shape[1]
+    if cfg.sliding_window is None and pos >= W:
+        raise ValueError(f"decode position {pos} is past the cache length {W}")
+    write = pos % W
+    K[:, write] = k[:, 0]
+    V[:, write] = v[:, 0]
+
+    if kernels:
+        # the softmax does not depend on slot order, so the ring's valid slots
+        # are exactly the first min(pos + 1, W)
+        out = decode_ops.decode_attention_cache(q, K, V, min(pos + 1, W))
+    else:
+        slot = torch.arange(W, device=x.device)
+        if cfg.sliding_window is not None:
+            # slot i holds token t = pos - ((pos - i) mod W); valid iff t >= 0
+            valid = pos - torch.remainder(pos - slot, W) >= 0
+        else:
+            valid = slot <= pos
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), K.float()) * dh**-0.5
+        s = torch.where(valid, s, torch.tensor(NEG_INF, device=s.device))
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(V.dtype), V)
+    out = out.reshape(B, 1, Hq * dh) @ p["wo"].to(x.dtype)
+    return out, cache

@@ -1,0 +1,56 @@
+"""Shared layers: norms, rotary embeddings, activations, embedding/lm-head.
+
+Plain PyTorch counterparts of `repro.models.layers`. Sharding annotations
+(`shard(...)`) have no counterpart on one device and are dropped.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    raise ValueError(f"activation {name!r} is not ported yet")
+
+
+def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to the input dtype."""
+    if "bias" in p:
+        raise NotImplementedError("layernorm is not ported yet")
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMSNorm over the trailing head_dim (qwen3 qk_norm)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (S,) or (B, S). Half-split rotate_half, fp32 angles."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions.to(torch.float32)[..., None] * freqs  # (S, dh/2) or (B, S, dh/2)
+    ang = ang[None, :, None, :] if positions.dim() == 1 else ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def embed_lookup(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return p["tok"][tokens].to(dtype)
+
+
+def lm_logits(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x: (..., d) -> (..., vocab), computed in `dtype` (JAX promotes x to it)."""
+    return x.to(dtype) @ p["w"].to(dtype)

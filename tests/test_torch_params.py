@@ -1,0 +1,85 @@
+"""The port's configs and parameter trees against the JAX package's."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from repro.configs import get_config as jax_get_config
+from repro.models.transformer import Model as JaxModel
+from repro_torch.configs import get_config
+from repro_torch.models import params as tparams
+from repro_torch.models.transformer import Model
+
+CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_fields_match_jax(reduced):
+    ours, theirs = get_config("qwen3-14b"), jax_get_config("qwen3-14b")
+    if reduced:
+        ours, theirs = ours.reduced(), theirs.reduced()
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert (ours.q_dim, ours.kv_dim) == (theirs.q_dim, theirs.kv_dim)
+    assert str(ours.compute_dtype).removeprefix("torch.") == str(theirs.compute_dtype)
+
+
+def test_param_count_matches_jax_at_full_width():
+    # counted from the shapes alone: nothing is allocated
+    assert Model(get_config("qwen3_14b")).param_count() == 14_768_307_200
+    assert JaxModel(jax_get_config("qwen3_14b")).param_count() == 14_768_307_200
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _leaves(v, path)
+        else:
+            yield path, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_from_jax_round_trips_bit_equal(dtype):
+    jcfg = jax_get_config("qwen3_14b").reduced(dtype=dtype, param_dtype=dtype)
+    cfg = get_config("qwen3_14b").reduced(dtype=dtype, param_dtype=dtype)
+    jparams = jax.tree.map(np.asarray, JaxModel(jcfg).init(jax.random.PRNGKey(0)))
+    ours = dict(_leaves(tparams.from_jax(jparams, cfg, CPU)))
+    theirs = dict(_leaves(jparams))
+    assert ours.keys() == theirs.keys()
+    for path, a in theirs.items():
+        t = ours[path]
+        assert tuple(t.shape) == a.shape, path
+        if path == "lm_head/w":  # widened to float32 once at load, exactly
+            assert t.dtype == torch.float32
+            t = t.to(getattr(torch, dtype))
+        if dtype == "bfloat16" and a.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16), path)
+        else:
+            np.testing.assert_array_equal(t.numpy(), a, path)
+
+
+def test_own_init_is_seeded_per_leaf():
+    cfg = get_config("qwen3_14b").reduced()
+    a, b = tparams.init_params(cfg, 0, CPU), tparams.init_params(cfg, 0, CPU)
+    c = tparams.init_params(cfg, 1, CPU)
+    for (path, x), (_, y), (_, z) in zip(_leaves(a), _leaves(b), _leaves(c)):
+        assert torch.equal(x, y), path
+        if not path.endswith("scale") and not path.endswith("_norm"):
+            assert not torch.equal(x, z), path
+            assert abs(x.float().std().item() - 0.02) < 0.005, path
+    # leaves of one shape draw from their own generators
+    assert not torch.equal(a["layers"]["attn"]["wk"], a["layers"]["attn"]["wv"])
+    assert a["lm_head"]["w"].dtype == torch.float32
+
+
+def test_layer_params_are_views():
+    cfg = get_config("qwen3_14b").reduced()
+    p = tparams.init_params(cfg, 0, CPU)
+    lp = tparams.layer_params(p, 1)
+    assert lp["attn"]["wq"].data_ptr() == p["layers"]["attn"]["wq"][1].data_ptr()
+    assert lp["ln2"]["scale"].shape == (cfg.d_model,)
