@@ -80,15 +80,28 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds of `fn()` over `iters` launches, after warm-up."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Mean device milliseconds of `fn()` over `iters` launches, after warm-up.
+
+    With `graph`, the `iters` calls are captured in one CUDA graph and the
+    replay is timed, so the host's dispatch of each call (the wrappers'
+    checks, ctypes, allocation: tens of microseconds) does not count. A
+    kernel shorter than that dispatch would otherwise be timed by the host.
+    Kernels and library calls are timed so; the plain versions, which copy
+    host scalars to the device, are timed as a plain loop.
+    """
     for _ in range(warmup):
         fn()
+    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -99,6 +112,15 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     tb, tf = nbytes / HBM, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def timing(shape: str, ms: float, plain_ms: float, library_ms, nbytes: float, flops: float,
+           dtype: torch.dtype) -> dict:
+    """One timed shape: the times, its bound, the achieved rate and the share of the bound."""
+    bound_ms, by = bound(nbytes, flops, dtype)
+    rate = (f"{nbytes / ms / 1e6:.1f} GB/s" if by == "bytes" else f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by, "rate": rate, "share_of_bound": bound_ms / ms}
 
 
 def _randn(rng, shape, dtype, dev):
@@ -140,13 +162,14 @@ def phase_build() -> None:
 
 # -------------------------------------------------------------------- phase 3
 def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128, S=1024,
-                  fa_lens=(1000, 1024), T=2048, nvs=(1, 1000, 2048), nv=1100,
+                  fa_lens=(1000, 1024, 1100), T=2048, nvs=(1, 1000, 2048), nv=1100,
                   sweeps=True) -> dict:
     """Compare each kernel with its plain version and time it; returns per-kernel records.
 
     Compared at the serving shapes (prefill rows, qk-norm rows, prompt lengths
     `fa_lens`, cache fills `nvs`) and, with `sweeps`, at the JAX package's
-    kernel-test sweeps; timed at rows x d, S and nv.
+    kernel-test sweeps; timed at rows x d (and rmsnorm also at the qk-norm's
+    rows x heads by dh), S and nv.
     """
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
@@ -175,18 +198,27 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
 
     x, res = _randn(rng, (rows, d), bf, dev), _randn(rng, (rows, d), bf, dev)
     sc = 1 + 0.1 * _randn(rng, (d,), torch.float32, dev)
-    rec["rmsnorm"].update(
-        ms=time_ms(lambda: rms_ops.rmsnorm(x, sc)), plain_ms=time_ms(lambda: rmsnorm_ref(x, sc)),
-        library_ms=time_ms(lambda: F.rms_norm(x, (d,), sc.to(bf), 1e-5)),
-        shape=f"x ({rows},{d}) bf16")
-    rec["rmsnorm"]["bound_ms"], rec["rmsnorm"]["bound_by"] = bound(
-        2 * rows * d * 2 + d * 4, 4 * rows * d, bf)
-    rec["rmsnorm_residual"].update(
-        ms=time_ms(lambda: rms_ops.rmsnorm_residual(x, res, sc)),
-        plain_ms=time_ms(lambda: rmsnorm_residual_ref(x, res, sc)), library_ms=None,
-        shape=f"x, res ({rows},{d}) bf16")
-    rec["rmsnorm_residual"]["bound_ms"], rec["rmsnorm_residual"]["bound_by"] = bound(
-        4 * rows * d * 2 + d * 4, 5 * rows * d, bf)
+    scb = sc.to(bf)
+    # each plain version is timed first, before a graph capture holds memory
+    plain = time_ms(lambda: rmsnorm_ref(x, sc))
+    rec["rmsnorm"].update(timing(
+        f"x ({rows},{d}) bf16", time_ms(lambda: rms_ops.rmsnorm(x, sc), iters=50, graph=True),
+        plain, time_ms(lambda: F.rms_norm(x, (d,), scb, 1e-5), iters=50, graph=True),
+        2 * rows * d * 2 + d * 4, 4 * rows * d, bf))
+    xh = _randn(rng, (rows * heads, dh), bf, dev)  # the qk-norm's rows (eps 1e-6)
+    sch = 1 + 0.1 * _randn(rng, (dh,), torch.float32, dev)
+    schb = sch.to(bf)
+    plain = time_ms(lambda: rmsnorm_ref(xh, sch, eps=1e-6))
+    rec["rmsnorm"]["extra"] = [timing(
+        f"x ({rows * heads},{dh}) bf16 (qk-norm)",
+        time_ms(lambda: rms_ops.rmsnorm(xh, sch, eps=1e-6), iters=50, graph=True), plain,
+        time_ms(lambda: F.rms_norm(xh, (dh,), schb, 1e-6), iters=50, graph=True),
+        2 * rows * heads * dh * 2 + dh * 4, 4 * rows * heads * dh, bf)]
+    plain = time_ms(lambda: rmsnorm_residual_ref(x, res, sc))
+    rec["rmsnorm_residual"].update(timing(
+        f"x, res ({rows},{d}) bf16",
+        time_ms(lambda: rms_ops.rmsnorm_residual(x, res, sc), iters=50, graph=True), plain, None,
+        4 * rows * d * 2 + d * 4, 5 * rows * d, bf))
 
     # --- flash attention (prefill)
     fa_cases = [(B, Hq, Hkv, s, dh, None, bf) for s in fa_lens]
@@ -204,14 +236,13 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     q = _randn(rng, (B, Hq, S, dh), bf, dev)
     k, v = _randn(rng, (B, Hkv, S, dh), bf, dev), _randn(rng, (B, Hkv, S, dh), bf, dev)
     pairs = S * (S + 1) // 2
-    rec["flash_attention"].update(
-        ms=time_ms(lambda: fa_ops.flash_attention_bhsd(q, k, v), iters=5),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v), iters=3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                  enable_gqa=True)),
-        shape=f"q ({B},{Hq},{S},{dh}) kv heads {Hkv} bf16 causal")
-    rec["flash_attention"]["bound_ms"], rec["flash_attention"]["bound_by"] = bound(
-        (2 * B * Hq + 2 * B * Hkv) * S * dh * 2, 4 * dh * pairs * B * Hq, bf)
+    plain = time_ms(lambda: attention_ref(q, k, v), iters=3)
+    rec["flash_attention"].update(timing(
+        f"q ({B},{Hq},{S},{dh}) kv heads {Hkv} bf16 causal",
+        time_ms(lambda: fa_ops.flash_attention_bhsd(q, k, v), iters=50, graph=True), plain,
+        time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                iters=50, graph=True),
+        (2 * B * Hq + 2 * B * Hkv) * S * dh * 2, 4 * dh * pairs * B * Hq, bf))
 
     # --- decode attention, cache in the model's (B, T, Hkv, dh) layout
     G = Hq // Hkv
@@ -232,19 +263,19 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     kc, vc = _randn(rng, (B, T, Hkv, dh), bf, dev), _randn(rng, (B, T, Hkv, dh), bf, dev)
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     q_sdpa = qd.reshape(B, Hq, 1, dh)
-    rec["decode_attention"].update(
-        ms=time_ms(lambda: dec_ops.decode_attention(qd, kt, vt, nv), iters=50),
-        plain_ms=time_ms(lambda: decode_attention_ref(qd, kt, vt, nv)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q_sdpa, kt[:, :, :nv], vt[:, :, :nv], enable_gqa=True), iters=50),
-        shape=f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16")
-    rec["decode_attention"]["bound_ms"], rec["decode_attention"]["bound_by"] = bound(
-        2 * B * Hq * dh * 2 + 2 * B * Hkv * nv * dh * 2, 4 * B * Hq * nv * dh, bf)
+    plain = time_ms(lambda: decode_attention_ref(qd, kt, vt, nv))
+    rec["decode_attention"].update(timing(
+        f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16",
+        time_ms(lambda: dec_ops.decode_attention(qd, kt, vt, nv), iters=50, graph=True), plain,
+        time_ms(lambda: F.scaled_dot_product_attention(
+            q_sdpa, kt[:, :, :nv], vt[:, :, :nv], enable_gqa=True), iters=50, graph=True),
+        2 * B * Hq * dh * 2 + 2 * B * Hkv * nv * dh * 2, 4 * B * Hq * nv * dh, bf))
     for name, r in rec.items():
-        lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"[kernels] {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib_ms} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        for t in [r, *r.get("extra", [])]:
+            lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+            log(f"[kernels] {name} at {t['shape']}: kernel {t['ms']:.4f} ms ({t['rate']}, "
+                f"{100 * t['share_of_bound']:.1f}% of bound), plain {t['plain_ms']:.4f} ms, "
+                f"library {lib_ms} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return rec
 
 
@@ -313,9 +344,11 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
     steps = out["decode_steps"]
     mem = out["max_memory_allocated"]
+    admissions = launches["flash_attention"] // cfg.num_layers  # one flash launch a layer a prefill
     log(f"[serve] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype}: {len(done)} requests, "
         f"{out['prompt_tokens']} prompt tokens, {out['tokens']} new tokens in {out['seconds']:.3f}s "
-        f"({out['tokens'] / out['seconds']:.2f} tok/s); prefill {out['prefill_seconds']:.3f}s, "
+        f"({out['tokens'] / out['seconds']:.2f} tok/s); prefill {out['prefill_seconds']:.3f}s "
+        f"({out['prefill_seconds'] / max(admissions, 1):.3f}s per admission, {admissions} admissions), "
         f"decode {steps} steps {1e3 * out['decode_seconds'] / max(steps, 1):.3f} ms/step; "
         f"max_memory_allocated {mem / 2**30 if mem else 0:.2f} GiB; launches {launches}")
     return {**{k: v for k, v in out.items() if k != "requests"}, "launches": launches}
@@ -383,7 +416,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": serve["launches"][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"], "shape": r["shape"],
+         **({"extra_shapes": r["extra"]} if "extra" in r else {})}
         for name, r in rec.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -41,14 +41,16 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # argtypes of each launcher in csrc/ (the stream is the last argument of each)
 SIGNATURES = {
-    # x, scale, y, rows, d, eps, dtype, stream
-    "launch_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _P],
+    # x, scale, y, rows, d, eps, dtype, the launch plan (elements per load,
+    # lanes per row, rows per block, loads per thread), stream
+    "launch_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
     # x, res, scale, y, r, rows, d, eps, dtype, stream
     "launch_rmsnorm_residual": [_P, _P, _P, _P, _P, _L, _I, _F, _I, _P],
     # q, k, v, o, B, Hq, Hkv, S, dh, q strides (b, h, s), k strides, v strides,
-    # o strides, window (<=0: none), scale, dtype, stream
+    # o strides, TMA boxes (dh columns, query rows, keys; zeros: no TMA),
+    # window (<=0: none), scale, dtype, stream
     "launch_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_I, _F, _I, _P],
+    + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, scratch, B, Hkv, G, T, dh, k strides (b, h, t), v strides,
     # n_valid, chunk, n_split, scale, dtype, stream
     "launch_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]

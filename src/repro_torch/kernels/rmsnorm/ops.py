@@ -2,8 +2,8 @@
 
 A CUDA tensor goes to the CUDA kernel, which launches or raises; a CPU
 tensor goes to the plain version in `ref.py`. Nothing falls back. The TPU
-wrapper padded rows to its 256-row block; a kernel with one block per row
-needs no padding.
+wrapper padded rows to its 256-row block; the CUDA kernels guard the rows
+past the end and need no padding.
 """
 
 from __future__ import annotations

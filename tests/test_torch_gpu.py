@@ -47,7 +47,8 @@ def _err(a, b) -> float:
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T,D,eps", [(256, 512, 1e-5), (300, 256, 1e-5), (64, 1024, 1e-5),
-                                     (1000, 5120, 1e-5), (4000, 128, 1e-6)])
+                                     (1000, 5120, 1e-5), (4000, 128, 1e-6), (4, 5120, 1e-5),
+                                     (40000, 128, 1e-6), (7, 5120, 1e-5), (33, 100, 1e-5)])
 def test_rmsnorm_kernels(dev, dtype, T, D, eps):
     rng = np.random.default_rng(2)
     x, res = _randn(rng, (T, D), dtype, dev), _randn(rng, (T, D), dtype, dev)
@@ -81,16 +82,52 @@ def test_flash_attention_kernel(dev, dtype, B, Hq, Hkv, S, dh, win):
     assert _err(out, attention_ref(q, k, v, window=win)) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_attention_model_layout(dev, dtype):
-    rng = np.random.default_rng(3)
-    B, S, Hkv, G, dh = 2, 200, 2, 5, 128
+def _model_layout_case(dev, dtype, B, S, Hkv, G, dh, window=None, seed=3):
+    rng = np.random.default_rng(seed)
     q = _randn(rng, (B, S, Hkv, G, dh), dtype, dev)
     k, v = _randn(rng, (B, S, Hkv, dh), dtype, dev), _randn(rng, (B, S, Hkv, dh), dtype, dev)
-    out = fa_ops.flash_attention(q, k, v)
+    n0 = build.LAUNCHES["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == n0 + 1
     ref = attention_ref(q.reshape(B, S, Hkv * G, dh).transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2))
+                        v.transpose(1, 2), window=window)
     assert _err(out, ref.transpose(1, 2).reshape(B, S, Hkv, G, dh)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_model_layout(dev, dtype):
+    _model_layout_case(dev, dtype, 2, 200, 2, 5, 128)
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,dh,win", [(4, 1100, 8, 5, 128, None), (1, 2048, 8, 5, 128, None),
+                                              (2, 1000, 2, 4, 64, 128)])
+def test_flash_attention_tensor_cores_serving_shapes(dev, B, S, Hkv, G, dh, win):
+    """The bf16 tensor-core kernel at the serve path's shapes (qwen3-14b: 40 query
+    heads over 8 kv heads, dh 128, S not a multiple of the tiles) and at dh 64
+    with a window."""
+    _model_layout_case(dev, torch.bfloat16, B, S, Hkv, G, dh, window=win, seed=4)
+
+
+def test_flash_attention_rejects_misaligned_views(dev):
+    z = torch.zeros(1, 2, 8, 68, device=dev, dtype=torch.bfloat16)[..., :64]  # 136-byte rows
+    ok = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    n0 = build.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention_bhsd(z, ok, ok)
+    assert build.LAUNCHES["flash_attention"] == n0
+
+
+def test_rmsnorm_scalar_path_on_misaligned_rows(dev):
+    """x starting 2 bytes past a 16-byte boundary takes the scalar loads."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (7 * 5120 + 1,), torch.bfloat16, dev)[1:].view(7, 5120)
+    sc = 1 + 0.1 * _randn(rng, (5120,), torch.float32, dev)
+    n0 = build.LAUNCHES["rmsnorm"]
+    y = rms_ops.rmsnorm(x, sc)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm"] == n0 + 1
+    assert _err(y, rmsnorm_ref(x, sc)) < TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

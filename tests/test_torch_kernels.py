@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import rmsnorm as rms_kernel
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]
@@ -137,19 +138,84 @@ def _gather(t: torch.Tensor, shape, strides) -> torch.Tensor:
     return torch.as_strided(t, shape, (*strides, 1), t.storage_offset())
 
 
+def _tma_box(t: torch.Tensor, dims, byte_strides, box, coord) -> torch.Tensor:
+    """What a TMA load puts in shared memory: the `box` (innermost first) of the
+    map (`dims`, outer `byte_strides`) over `t`'s storage at `coord`, with zeros
+    for every element past `dims`. Returned outermost first: (box[3], .., box[0])."""
+    flat = torch.as_strided(t, (t.untyped_storage().nbytes() // t.element_size(),), (1,), 0)
+    steps = (1, *(s // t.element_size() for s in byte_strides))
+    off = torch.full((), t.storage_offset(), dtype=torch.long)
+    inside = torch.ones((), dtype=torch.bool)
+    for axis in range(4):  # broadcast (box[3], box[2], box[1], box[0])
+        c = (coord[axis] + torch.arange(box[axis])).view([-1 if a == axis else 1 for a in (3, 2, 1, 0)])
+        off, inside = off + c * steps[axis], inside & (c < dims[axis])
+    return torch.where(inside, flat[torch.where(inside, off, 0)], torch.zeros((), dtype=t.dtype))
+
+
 def _replay_flash(q, k, v, out, args):
-    """The flash kernel's arithmetic, reading and writing only through `launch_args`."""
+    """The flash kernel's arithmetic, reading and writing only through `launch_args`.
+
+    Off the tensor-core path (no boxes) the kernel reads elements through the
+    strides. On it, every load is a TMA box of the 4-D (dh, heads, S, B) map
+    built from the strides: Q in `box_q`-row blocks, K and V in `box_k`-key
+    tiles walked per 64-row warpgroup from the window's first live tile to the
+    diagonal, with the key < S mask explicit. The Q boxes must rebuild q and
+    the K/V boxes k and v, with zeros past S."""
     B, Hq, Hkv, S, dh, *rest = args
-    st, window, scale = rest[:12], rest[12], rest[13]
-    qs = _gather(q, (B, Hq, S, dh), st[0:3])
-    ks, vs = _gather(k, (B, Hkv, S, dh), st[3:6]), _gather(v, (B, Hkv, S, dh), st[6:9])
+    st, (box_d, box_q, box_k), window, scale = rest[:12], rest[12:15], rest[15], rest[16]
     G = Hq // Hkv
-    kh, vh = ks[:, torch.arange(Hq) // G], vs[:, torch.arange(Hq) // G]
-    s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), kh.float()) * scale
-    i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
-    ok = (j <= i) & ((j > i - window) if window > 0 else True)
-    p = torch.softmax(torch.where(ok, s, torch.tensor(-1e30)), -1)
-    _gather(out, (B, Hq, S, dh), st[9:12]).copy_(torch.einsum("bhqk,bhkd->bhqd", p, vh.float()))
+    if box_d == 0:
+        qs = _gather(q, (B, Hq, S, dh), st[0:3])
+        ks, vs = _gather(k, (B, Hkv, S, dh), st[3:6]), _gather(v, (B, Hkv, S, dh), st[6:9])
+        kh, vh = ks[:, torch.arange(Hq) // G], vs[:, torch.arange(Hq) // G]
+        s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), kh.float()) * scale
+        i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
+        ok = (j <= i) & ((j > i - window) if window > 0 else True)
+        p = torch.softmax(torch.where(ok, s, torch.tensor(-1e30)), -1)
+        _gather(out, (B, Hq, S, dh), st[9:12]).copy_(torch.einsum("bhqk,bhkd->bhqd", p, vh.float()))
+        return
+
+    def tile(t, heads, strides, rows, pos):  # (B, heads, rows, dh) from dh / box_d boxes
+        dims, byte_strides = (dh, heads, S, B), [x * t.element_size() for x in (strides[1], strides[2], strides[0])]
+        boxes = [_tma_box(t, dims, byte_strides, (box_d, heads, rows, B), (c, 0, pos, 0))
+                 for c in range(0, dh, box_d)]
+        return torch.cat(boxes, -1).transpose(1, 2)
+
+    n_qb, n_kb = -(-S // box_q), -(-S // box_k)
+    q_all = torch.cat([tile(q, Hq, st[0:3], box_q, qb * box_q) for qb in range(n_qb)], 2)
+    k_all = torch.cat([tile(k, Hkv, st[3:6], box_k, kb * box_k) for kb in range(n_kb)], 2)
+    v_all = torch.cat([tile(v, Hkv, st[6:9], box_k, kb * box_k) for kb in range(n_kb)], 2)
+    for whole, t, heads, sts in ((q_all, q, Hq, st[0:3]), (k_all, k, Hkv, st[3:6]), (v_all, v, Hkv, st[6:9])):
+        assert torch.equal(whole[:, :, :S], _gather(t, (B, heads, S, dh), sts))
+        assert not whole[:, :, S:].any()  # zero fill past S
+    k_all, v_all = k_all[:, torch.arange(Hq) // G], v_all[:, torch.arange(Hq) // G]
+    o = _gather(out, (B, Hq, S, dh), st[9:12])
+    wg_rows = 64
+    for qb in range(n_qb):
+        q0 = qb * box_q
+        kb_lo = max(0, q0 - window + 1) // box_k if window > 0 else 0
+        kb_hi = -(-min(S, q0 + box_q) // box_k)
+        for w0 in range(q0, q0 + box_q, wg_rows):  # one warpgroup's rows
+            if w0 >= S:
+                continue
+            w_lo = max(0, w0 - window + 1) // box_k if window > 0 else 0
+            w_hi = -(-min(S, w0 + wg_rows) // box_k)
+            qt = q_all[:, :, w0:w0 + wg_rows].float()
+            rows = torch.arange(w0, w0 + wg_rows)[:, None]
+            m = torch.full((B, Hq, wg_rows, 1), -1e30)
+            l, acc = torch.zeros_like(m), torch.zeros(B, Hq, wg_rows, dh)
+            for kb in range(max(kb_lo, w_lo), min(kb_hi, w_hi)):
+                keys = torch.arange(kb * box_k, (kb + 1) * box_k)[None, :]
+                kt, vt = k_all[:, :, keys[0]].float(), v_all[:, :, keys[0]]
+                ok = (keys <= rows) & (keys < S) & ((keys > rows - window) if window > 0 else True)
+                s = torch.where(ok, torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p, corr = torch.exp(s - m_new), torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.to(vt.dtype).float() @ vt.float()
+                m = m_new
+            n = min(S, w0 + wg_rows) - w0
+            o[:, :, w0:w0 + n] = (acc / l.clamp_min(1e-30))[:, :, :n].to(o.dtype)
 
 
 @pytest.mark.parametrize("window", [None, 24])
@@ -184,6 +250,76 @@ def test_flash_attention_launch_args_reject():
         q = z(1, 2, 32, 8).transpose(2, 3)
         fa_kernel.launch_args(q, z(1, 1, 8, 32), z(1, 1, 8, 32), z(1, 2, 8, 32), scale=None,
                               window=None)
+
+
+@pytest.mark.parametrize("S", [70, 300, 1100])
+@pytest.mark.parametrize("window", [None, 96])
+@pytest.mark.parametrize("G", [3, 5])
+def test_flash_attention_tma_boxes_model_layout(S, window, G):
+    """bf16 at dh 64 takes the TMA path: the boxes that `launch_args` plans over
+    the model-layout views rebuild q, k, v, and the tile walk rebuilds out."""
+    rng = np.random.default_rng(10)
+    B, Hkv, dh = 2, 1, 64
+    q = torch.from_numpy(rng.standard_normal((B, S, Hkv, G, dh), dtype=np.float32)).bfloat16()
+    k = torch.from_numpy(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).bfloat16()
+    out = torch.zeros_like(q)
+    views = (q.view(B, S, Hkv * G, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             out.view(B, S, Hkv * G, dh).transpose(1, 2))
+    args = fa_kernel.launch_args(*views, scale=None, window=window)
+    assert args[17:20] == (fa_kernel.BOX_D, fa_kernel.BLOCK_Q, fa_kernel.BLOCK_K)
+    _replay_flash(*views, args)
+    ref = fa_ops.flash_attention(q, k, v, window=window)
+    assert (ref.float() - out.float()).abs().max().item() < TOL["bfloat16"]
+
+
+def test_flash_attention_launch_args_reject_misaligned():
+    """TMA needs 16-byte aligned bases and outer strides; the fp32-tile path does not."""
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
+    ok = (z(1, 2, 8, 64), z(1, 1, 8, 64), z(1, 1, 8, 64), z(1, 2, 8, 64))
+    assert fa_kernel.launch_args(*ok, scale=None, window=None)[17:20] == (64, 128, 64)
+    shifted = z(2 * 8 * 64 + 1)[1:].view(1, 2, 8, 64)  # base 2 bytes past a boundary
+    padded = z(1, 1, 8, 68)[..., :64]  # rows 136 bytes apart
+    for i, bad in ((0, shifted), (1, padded), (3, shifted)):
+        views = list(ok)
+        views[i] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_kernel.launch_args(*views, scale=None, window=None)
+    f32 = [t.float() for t in ok]
+    f32[1] = z(1, 1, 8, 65, dt=torch.float32)[..., :64]  # 260-byte rows: fine without TMA
+    assert fa_kernel.launch_args(*f32, scale=None, window=None)[17:20] == (0, 0, 0)
+
+
+@pytest.mark.parametrize("d", [5120, 1024, 512, 256, 128, 100])
+@pytest.mark.parametrize("elem_size", [2, 4])
+@pytest.mark.parametrize("rows", [1, 7, 33, 300])
+def test_rmsnorm_launch_plan_covers_each_element_once(d, elem_size, rows):
+    """Replay `csrc/rmsnorm.cu`'s indexing from the plan: every element of every
+    row is loaded by exactly one thread, in loads that stay inside the row."""
+    for aligned in (True, False):
+        plan = rms_kernel.launch_plan(rows, d, elem_size, aligned)
+        vec, lanes, rpb, vpt, blocks = plan
+        assert vec == (16 // elem_size if aligned and d % (16 // elem_size) == 0 else 1)
+        assert lanes * rpb <= 1024 and (lanes * rpb) % 32 == 0 and vpt in (1, 2, 4, 8)
+        assert (lanes <= 32 and lanes & (lanes - 1) == 0) or rpb == 1
+        assert (blocks - 1) * rpb < rows <= blocks * rpb
+        tid = np.arange(lanes * rpb)
+        row = np.arange(blocks)[:, None] * rpb + tid[None, :] // lanes  # (block, thread)
+        load = (tid % lanes)[None, :, None] + np.arange(vpt)[None, None, :] * lanes
+        live = (row[:, :, None] < rows) & (load < d // vec)
+        shape = (blocks, lanes * rpb, vpt, vec)  # (block, thread, j, e)
+        elem = np.broadcast_to(load[..., None] * vec + np.arange(vec), shape)
+        count = np.zeros((rows, d), np.int64)
+        r = np.broadcast_to(row[:, :, None, None], shape)
+        sel = np.broadcast_to(live[..., None], shape)
+        np.add.at(count, (r[sel], elem[sel]), 1)
+        assert (count == 1).all()
+
+
+def test_rmsnorm_launch_plan_rejects_rows_too_wide():
+    assert rms_kernel.launch_plan(1, 8 * 8 * 1024, 2, True).vecs_per_thread == 8
+    with pytest.raises(ValueError, match="wider"):
+        rms_kernel.launch_plan(1, 8 * 8 * 1024 + 8, 2, True)
 
 
 @pytest.mark.parametrize("nv,sms", [(1, 132), (37, 132), (300, 132), (300, 4), (1100, 132)])

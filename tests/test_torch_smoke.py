@@ -19,7 +19,7 @@ import chip_smoke  # noqa: E402
 CPU = torch.device("cpu")
 
 
-def _host_ms(fn, iters=2, warmup=1):
+def _host_ms(fn, iters=2, warmup=1, graph=False):
     for _ in range(warmup):
         fn()
     t0 = time.perf_counter()
@@ -41,6 +41,8 @@ def test_phase_kernels_rehearsal(monkeypatch):
         assert r["bound_by"] in ("bytes", "operations") and r["bound_ms"] > 0
         assert {"ms", "plain_ms", "library_ms", "max_abs_err"} <= r.keys()
     assert rec["rmsnorm_residual"]["library_ms"] is None
+    (qk,) = rec["rmsnorm"]["extra"]  # the qk-norm's rows, timed beside F.rms_norm
+    assert qk["shape"].startswith("x (128,32)") and qk["library_ms"] is not None
 
 
 def test_phase_parity_rehearsal():
@@ -67,3 +69,12 @@ def test_bound_picks_the_larger_time():
     assert (ms, by) == (1e3, "bytes")
     ms, by = chip_smoke.bound(0.0, 989e12 * 2, torch.bfloat16)
     assert (ms, by) == (2e3, "operations")
+
+
+def test_timing_reports_rate_and_share_of_bound():
+    t = chip_smoke.timing("x", 0.05, 0.5, None, 3.35e12 * 0.025e-3, 1.0, torch.bfloat16)
+    assert t["bound_by"] == "bytes" and abs(t["share_of_bound"] - 0.5) < 1e-12
+    assert t["rate"] == "1675.0 GB/s"  # half of 3.35 TB/s
+    t = chip_smoke.timing("q", 0.1, 1.0, 0.2, 1.0, 989e12 * 0.05e-3, torch.bfloat16)
+    assert t["bound_by"] == "operations" and t["rate"].endswith("TFLOP/s")
+    assert abs(t["share_of_bound"] - 0.5) < 1e-12
