@@ -9,12 +9,15 @@ Phases, each of which fails the run with a non-zero exit:
                sm_90a) and print each kernel's registers, shared memory and spills;
   3. kernels - hold each kernel to its plain PyTorch version on the card, at
                the serving shapes and at the JAX package's test sweeps, and
-               time kernel, plain version, one library call and the bound;
+               time kernel, plain version, one library call and the bound
+               (decode attention over a rotation of caches, so that its L2
+               is cold, as it is in serving);
   4. parity  - qwen3-14b at full width and 2 layers in bf16: prefill and 8
                decode steps through the kernels against the plain path;
   5. serve   - qwen3-14b at full width and depth (40 layers, bf16, seeded
                init): 8 requests of 900-1100 prompt tokens over 4 slots,
-               32 new tokens each; every kernel must launch in this phase;
+               32 new tokens each; every kernel must launch in this phase,
+               decode attention once a layer a decode step;
   6. trace   - one decode step of that model, timed and traced with
                torch.profiler: device busy time, idle share, top kernels.
 Then one JSON line of the kernels and, last, the JSON result line.
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -41,6 +45,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -54,6 +59,13 @@ PEAK_BF16 = 989e12  # H100 SXM dense tensor-core bf16 FLOP/s (data sheet)
 PEAK_F32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM = 3.35e12  # H100 SXM bytes/s
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# COLD_L2_NOTE: in serving, each layer's cache is read once a step, with ~26 GB
+# of weights streamed between two reads of it, so it is cold in the 50 MB L2.
+# One (4, 2048, 8, 128) K/V pair is 33.5 MB, and a call reads 18 MB of it: timed
+# back to back on one pair, every call after the first would read from L2. So
+# the decode kernel and its library call are timed over a rotation of
+# ROTATION pairs: a pair is read again only after 7 x 18 MB of other reads.
+ROTATION = 8
 # NORM_GAIN_NOTE: norm gains are drawn near one (1 + 0.1 N(0, 1)), as the
 # model initialises them and as trained RMSNorm gains sit. With N(0, 1) gains
 # the bf16 outputs reach 16, where one bf16 step is 0.0625: a last-bit
@@ -144,6 +156,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     _, seconds, text = build.build()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[build] nvcc {seconds:.1f}s for {len(build.sources())} sources")
     fn = None
     for line in text.splitlines():
@@ -158,18 +171,25 @@ def phase_build() -> None:
             log(f"[build] {fn}: {m.group(1)} registers, {m.group(2) or 0} B static smem, "
                 f"{spills} B spill stores")
             fn = None
+    # the decode kernel's clusters at the serving shape (qwen3-14b, 4 slots, n_valid 1100)
+    plan = dec_kernel.card_plan(1100, 4, 8, 5, 128)
+    log(f"[build] decode_attention serving plan: grid {plan.grid}, clusters of {plan.n_split} CTAs "
+        f"({plan.grid[1] * plan.grid[2]} clusters), {plan.stages}-stage TMA ring, {plan.smem} B "
+        f"shared memory a CTA; cudaOccupancyMaxActiveClusters: "
+        f"{dec_kernel.max_active_clusters(plan, 128)} such clusters resident at once ({sms} SMs)")
 
 
 # -------------------------------------------------------------------- phase 3
 def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128, S=1024,
-                  fa_lens=(1000, 1024, 1100), T=2048, nvs=(1, 1000, 2048), nv=1100,
+                  fa_lens=(1000, 1024, 1100), T=2048, nvs=(1, 1000, 1100, 2048), nv=1100,
                   sweeps=True) -> dict:
     """Compare each kernel with its plain version and time it; returns per-kernel records.
 
     Compared at the serving shapes (prefill rows, qk-norm rows, prompt lengths
     `fa_lens`, cache fills `nvs`) and, with `sweeps`, at the JAX package's
     kernel-test sweeps; timed at rows x d (and rmsnorm also at the qk-norm's
-    rows x heads by dh), S and nv.
+    rows x heads by dh), S and nv; decode attention and its library call over
+    a rotation of ROTATION caches (see COLD_L2_NOTE).
     """
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
@@ -250,7 +270,8 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     if sweeps:
         dec_cases += [(b, hk, g, t, e, n, dt)
                       for b, hk, g, t, e, n in ((2, 4, 2, 512, 64, 300), (1, 2, 6, 1024, 128, 1024),
-                                                (2, 8, 1, 512, 64, 1), (1, 2, 4, 600, 32, 77))
+                                                (2, 8, 1, 512, 64, 1), (1, 2, 4, 600, 32, 77),
+                                                (1, 2, 5, 600, 64, 65), (2, 1, 16, 2048, 128, 1100))
                       for dt in (torch.float32, bf)]
     for b, hk, g, t, e, n, dt in dec_cases:
         qd = _randn(rng, (b, hk, g, e), dt, dev)
@@ -260,16 +281,41 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
              _err(dec_ops.decode_attention(qd, kt, vt, n), decode_attention_ref(qd, kt, vt, n)),
              TOL[dt])
     qd = _randn(rng, (B, Hkv, G, dh), bf, dev)
-    kc, vc = _randn(rng, (B, T, Hkv, dh), bf, dev), _randn(rng, (B, T, Hkv, dh), bf, dev)
-    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    pairs = [tuple(_randn(rng, (B, T, Hkv, dh), bf, dev).transpose(1, 2) for _ in range(2))
+             for _ in range(ROTATION)]
+    kt, vt = pairs[0]
     q_sdpa = qd.reshape(B, Hq, 1, dh)
+    rot_mb = ROTATION * 2 * kt.numel() * kt.element_size() / 1e6
+
+    def cold(fn):  # fn(k, v) over the pairs in turn (COLD_L2_NOTE)
+        turn = itertools.cycle(pairs)
+        return lambda: fn(*next(turn))
+
+    kern = lambda k_, v_: dec_ops.decode_attention(qd, k_, v_, nv)  # noqa: E731
+    sdpa = lambda k_, v_: F.scaled_dot_product_attention(  # noqa: E731
+        q_sdpa, k_[:, :, :nv], v_[:, :, :nv], enable_gqa=True)
     plain = time_ms(lambda: decode_attention_ref(qd, kt, vt, nv))
+    iters = 6 * ROTATION
     rec["decode_attention"].update(timing(
-        f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16",
-        time_ms(lambda: dec_ops.decode_attention(qd, kt, vt, nv), iters=50, graph=True), plain,
-        time_ms(lambda: F.scaled_dot_product_attention(
-            q_sdpa, kt[:, :, :nv], vt[:, :, :nv], enable_gqa=True), iters=50, graph=True),
+        f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16, cold L2 "
+        f"({ROTATION} K/V pairs rotated, {rot_mb:.1f} MB)",
+        time_ms(cold(kern), iters=iters, graph=True), plain,
+        time_ms(cold(sdpa), iters=iters, graph=True),
         2 * B * Hq * dh * 2 + 2 * B * Hkv * nv * dh * 2, 4 * B * Hq * nv * dh, bf))
+    warm_k, warm_s = (time_ms(lambda: f(kt, vt), iters=iters, graph=True) for f in (kern, sdpa))
+    log(f"[kernels] decode_attention timing: {iters} graph-captured calls over {ROTATION} K/V "
+        f"cache pairs ({rot_mb:.1f} MB, a pair read again after {ROTATION - 1} x "
+        f"{2 * B * Hkv * nv * dh * 2 / 1e6:.1f} MB of other reads); on one pair (warm L2, "
+        f"not reported): kernel {warm_k:.4f} ms, SDPA {warm_s:.4f} ms")
+    # what does not scale with the cache: one 64-slot tile per (batch, kv head), cold,
+    # and a trivial kernel as one node of a graph (the launch alone)
+    one_tile = time_ms(cold(lambda k_, v_: dec_ops.decode_attention(qd, k_, v_, min(64, T))),
+                       iters=iters, graph=True)
+    z = torch.zeros(16, device=dev)
+    node = time_ms(lambda: z.add_(1), iters=iters, graph=True)
+    log(f"[kernels] decode_attention floor: n_valid 64 (one tile per (batch, kv head)) "
+        f"{one_tile:.4f} ms cold; a trivial kernel as a graph node {node:.4f} ms")
+    del pairs, kt, vt
     for name, r in rec.items():
         for t in [r, *r.get("extra", [])]:
             lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
@@ -343,6 +389,9 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
     steps = out["decode_steps"]
+    if launches["decode_attention"] != cfg.num_layers * steps:
+        raise AssertionError(f"serve: {launches['decode_attention']} decode-attention launches in "
+                             f"{steps} decode steps of {cfg.num_layers} layers")
     mem = out["max_memory_allocated"]
     admissions = launches["flash_attention"] // cfg.num_layers  # one flash launch a layer a prefill
     log(f"[serve] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype}: {len(done)} requests, "

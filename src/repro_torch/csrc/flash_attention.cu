@@ -43,8 +43,6 @@
 //   batch); four threads own a query row: each computes 16 of the 64 scores
 //   of a key tile, the row max and sum come from two shuffles, and each
 //   keeps dh/4 accumulator columns in registers. Layouts arrive as strides.
-#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -162,7 +160,7 @@ constexpr int WG_ROWS = 64;   // query rows of one warpgroup (one wgmma M)
 constexpr int BK = 64;        // keys of a tile
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int STAGES = 2;     // K/V ring depth
-constexpr int BOX_D = 64;     // dh columns of one TMA box: one 128-byte swizzle row
+constexpr int BOX_D = SW128_COLS;  // dh columns of one TMA box: one 128-byte swizzle row
 constexpr int ROW = BOX_D * 2;  // bytes of a tile row
 
 // Shared memory: Q [DH/64][BQ][64], then K and V rings [STAGES][DH/64][BK][64],
@@ -174,22 +172,6 @@ struct Smem {
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + STAGES) + 1024;  // + slack to align the base
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_m64n64k16_rs(o, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_m64n128k16_rs(o, a, b);
-}
 
 // K and V tiles of keys key0.. of kv head hk into ring stage st (one thread).
 template <int DH>
@@ -360,39 +342,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int qrow = q_start + row;
     if (qrow < S) *reinterpret_cast<uint4*>(ob + qrow * oss + cc * 8) = val;
   }
-}
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 (B, H, S, dh) view with element strides (sb, sh, ss, 1) as a 4-D map
-// over (dh, H, S, B); one box is 64 dh columns by `rows` positions.
-static bool make_map(CUtensorMap* map, const void* base, int dh, int heads, int S, int B,
-                     long long sb, long long sh, long long ss, int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)BOX_D, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>

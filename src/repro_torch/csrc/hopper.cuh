@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels, as inline PTX:
 // mbarriers, TMA tile loads, shared-memory matrix descriptors and the
-// warpgroup matrix multiply (`wgmma`). Nothing here launches anything.
+// warpgroup matrix multiply (`wgmma`); and, on the host, the encoding of the
+// tensor maps that TMA reads. Nothing here launches anything.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzling: a tile is
 // a run of 128-byte rows (64 bf16), and the 16-byte chunk c of row r sits at
@@ -8,6 +9,10 @@
 // tile starts on a 1024-byte boundary. A descriptor names such a tile with
 // layout type 1 (128-byte swizzle), matching CU_TENSOR_MAP_SWIZZLE_128B.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -97,19 +102,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem): B MN-major
+// (TRANS_B = 1, as V in P.V) or K-major (TRANS_B = 0, as K in Q.K^T)
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
 }
 
 // D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
@@ -129,4 +136,61 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Two floats as a bf16 pair in one register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// O (64 x DH) += P (64 x 16, registers) * V (16 x DH, smem, MN-major)
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_m64n64k16_rs(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_m64n128k16_rs(o, a, b);
+}
+
+// ---------------------------------------------------------------- tensor maps (host)
+constexpr int SW128_COLS = 64;  // bf16 columns of one 128-byte swizzle row: a box's width
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// nothing links libcuda; null if the driver does not have it.
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (B, H, S, dh) view with element strides (sb, sh, ss, 1) as a 4-D map
+// over (dh, H, S, B), 128-byte swizzled; one box is 64 dh columns by `rows`
+// positions. Positions at or past S arrive as zeros.
+static inline bool make_map(CUtensorMap* map, const void* base, int dh, int heads, int S, int B,
+                            long long sb, long long sh, long long ss, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)SW128_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

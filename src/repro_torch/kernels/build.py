@@ -39,7 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# argtypes of each launcher in csrc/ (the stream is the last argument of each)
+# argtypes of each C entry point in csrc/ (the stream is the last argument of each launcher)
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype, the launch plan (elements per load,
     # lanes per row, rows per block, loads per thread), stream
@@ -51,10 +51,14 @@ SIGNATURES = {
     # window (<=0: none), scale, dtype, stream
     "launch_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, scratch, B, Hkv, G, T, dh, k strides (b, h, t), v strides,
-    # n_valid, chunk, n_split, scale, dtype, stream
-    "launch_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 6 + [_I, _I, _I, _F, _I, _P],
+    # q, k, v, o, B, Hkv, G, T, dh, k strides (b, h, t), v strides, n_valid,
+    # the launch plan (n_split, tiles per CTA, ring stages, smem bytes, TMA box
+    # dh columns and slots, slot extent), scale, dtype, stream
+    "launch_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 6 + [_I] * 8 + [_F, _I, _P],
+    # dtype, dh, n_split, smem bytes -> clusters of the decode kernel resident
+    # at once (a negative cudaError_t on failure); launches nothing, no stream
+    "decode_attention_max_active_clusters": [_I, _I, _I, _I],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

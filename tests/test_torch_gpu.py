@@ -135,7 +135,9 @@ def test_rmsnorm_scalar_path_on_misaligned_rows(dev):
     "B,Hkv,G,T,dh,nv",
     [(2, 4, 2, 512, 64, 300), (1, 2, 6, 1024, 128, 1024), (2, 8, 1, 512, 64, 1),
      (1, 2, 4, 600, 32, 77), (4, 8, 5, 2048, 128, 1), (4, 8, 5, 2048, 128, 1000),
-     (4, 8, 5, 2048, 128, 2048)],
+     (4, 8, 5, 2048, 128, 2048), (4, 8, 5, 2048, 128, 1100), (1, 2, 5, 600, 64, 63),
+     (1, 2, 5, 600, 64, 64), (1, 2, 5, 600, 64, 65), (2, 1, 16, 2048, 128, 1100),
+     (1, 1, 1, 2048, 64, 2047), (2, 4, 6, 600, 128, 300)],
 )
 def test_decode_attention_kernel(dev, dtype, B, Hkv, G, T, dh, nv):
     rng = np.random.default_rng(1)
@@ -150,6 +152,52 @@ def test_decode_attention_kernel(dev, dtype, B, Hkv, G, T, dh, nv):
     assert _err(out, decode_attention_ref(q, k, v, nv)) < TOL[dtype]
 
 
+def _decode_case(dev, dtype, B, Hkv, G, T, dh, seed=12):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, Hkv, G, dh), dtype, dev)
+    kc, vc = _randn(rng, (B, T, Hkv, dh), dtype, dev), _randn(rng, (B, T, Hkv, dh), dtype, dev)
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("dtype,dh,nv", [(torch.bfloat16, 128, 1100), (torch.bfloat16, 64, 65),
+                                         (torch.bfloat16, 32, 77), (torch.float32, 128, 1100)])
+def test_decode_attention_nan_tail_is_never_read(dev, dtype, dh, nv):
+    """Slots at or past n_valid may hold anything, NaN included: the result is
+    bitwise the one with a zero tail (the TMA maps end at n_valid)."""
+    q, kc, vc = _decode_case(dev, dtype, 4, 8, 5, 2048, dh)
+    outs = []
+    for fill in (0.0, float("nan")):
+        kc[:, nv:], vc[:, nv:] = fill, fill
+        outs.append(flash_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), nv))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[1].float()).all() and torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_cuda_graph_replay(dev, dtype):
+    """A call captured in a CUDA graph and replayed equals the eager call."""
+    q, kc, vc = _decode_case(dev, dtype, 4, 8, 5, 2048, 128)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    eager = flash_decode(q, k, v, 1100)
+    flash_decode(q, k, v, 1100)  # warm-up on the capture's stream
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = flash_decode(q, k, v, 1100)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_decode_attention_clusters_fit_one_wave(dev):
+    """The serving plan's clusters (8 CTAs of ~97 KB) are resident at once on an H100."""
+    from repro_torch.kernels.decode_attention import decode_attention as dec
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = dec.launch_plan(1100, 4, 8, 5, 128, tensor_cores=True, sms=sms)
+    assert dec.max_active_clusters(plan, 128) >= 1
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 256, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -160,3 +208,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         flash_decode(torch.zeros(1, 2, 4, 64, device=dev), torch.zeros(1, 2, 8, 64, device=dev),
                      torch.zeros(1, 2, 8, 64, device=dev), torch.tensor(3, device=dev))
+    n0 = build.LAUNCHES["decode_attention"]
+    kv = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    padded = torch.zeros(1, 2, 8, 68, device=dev, dtype=torch.bfloat16)[..., :64]  # 136-byte rows
+    with pytest.raises(ValueError, match="16-byte"):  # TMA cannot read it
+        flash_decode(torch.zeros(1, 2, 4, 64, device=dev, dtype=torch.bfloat16), padded, kv, 3)
+    with pytest.raises(ValueError):  # mixed dtypes
+        flash_decode(torch.zeros(1, 2, 4, 64, device=dev), kv, kv, 3)
+    assert build.LAUNCHES["decode_attention"] == n0

@@ -25,12 +25,13 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def _port_files() -> list[Path]:
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "chip_compare.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 20 and ROOT / "scripts" / "chip_compare.py" in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN)) for p in files}
     assert not {k: v for k, v in bad.items() if v}
 

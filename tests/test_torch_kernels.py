@@ -322,41 +322,181 @@ def test_rmsnorm_launch_plan_rejects_rows_too_wide():
         rms_kernel.launch_plan(1, 8 * 8 * 1024 + 8, 2, True)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _replay_decode(q, k, v, args):
+    """The decode kernel's arithmetic, reading only through `launch_args` and its plan.
+
+    On the tensor-core path every K/V tile is a TMA box of the 4-D (dh, Hkv,
+    slots, B) map whose slot extent is the plan's (n_valid): the boxes must
+    rebuild k and v below it and hold zeros past it. Off it, the kernel reads
+    the valid slots through the strides. Each CTA of a cluster runs the online
+    softmax over its tiles (the tensor-core kernel in log2 units, p rounded to
+    v's dtype), then the cluster combine: rescale each CTA's (m, l, acc) to the
+    common max and divide, each rank writing its slice of the dh columns."""
+    B, Hkv, G, T, dh, *rest = args
+    kst, vst = rest[0:3], rest[3:6]
+    nv, n_split, tiles_per_cta, stages, smem, box_d, box_slots, extent, scale = rest[6:15]
+    plan = dec_kernel.LaunchPlan(n_split, tiles_per_cta, stages, smem, (box_d, box_slots), extent,
+                                 (n_split, Hkv, B))
+    n_tiles = -(-nv // dec_kernel.TILE)
+    assert extent == nv and (box_d, box_slots) in ((0, 0), (dec_kernel.BOX_D, dec_kernel.TILE))
+    padded = (B, Hkv, n_tiles * dec_kernel.TILE, dh)
+    if box_d:
+        def tiles_of(t, st):  # (B, Hkv, n_tiles * TILE, dh) from dh / box_d boxes a tile
+            dims, bs = (dh, Hkv, extent, B), [x * t.element_size() for x in (st[1], st[2], st[0])]
+            return torch.cat([torch.cat([_tma_box(t, dims, bs, (box_d, Hkv, box_slots, B), (c, 0, j * box_slots, 0))
+                                         for c in range(0, dh, box_d)], -1)
+                              for j in range(n_tiles)], 1).transpose(1, 2)
+        K, V = tiles_of(k, kst), tiles_of(v, vst)
+        for whole, t, st in ((K, k, kst), (V, v, vst)):
+            assert torch.equal(whole[:, :, :nv], _gather(t, (B, Hkv, nv, dh), st))
+            assert (whole[:, :, nv:] == 0).all()  # zero fill past n_valid, whatever the cache holds
+    else:
+        K, V = torch.zeros(padded, dtype=k.dtype), torch.zeros(padded, dtype=v.dtype)
+        K[:, :, :nv], V[:, :, :nv] = _gather(k, (B, Hkv, nv, dh), kst), _gather(v, (B, Hkv, nv, dh), vst)
+    exp = torch.exp2 if box_d else torch.exp
+    parts = []
+    for t0, n_t in dec_kernel.cta_tiles(plan, nv):
+        m = torch.full((B, Hkv, G, 1), -1e30)
+        l, acc = torch.zeros_like(m), torch.zeros(B, Hkv, G, dh)
+        for j in range(t0, t0 + n_t):
+            slots = torch.arange(j * dec_kernel.TILE, (j + 1) * dec_kernel.TILE)
+            s = torch.einsum("bhgd,bhkd->bhgk", q.float(), K[:, :, slots].float())
+            s = torch.where(slots < nv, s * scale * (LOG2E if box_d else 1.0), torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p, corr = exp(s - m_new), exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(V.dtype).float() @ V[:, :, slots].float()
+            m = m_new
+        parts.append((m if box_d else m * LOG2E, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp2(m - M) for m, _, _ in parts]
+    inv = 1 / sum(w_ * l_ for w_, (_, l_, _) in zip(w, parts)).clamp_min(1e-30)
+    out = torch.zeros(B, Hkv, G, dh)
+    cols = dec_kernel.slice_cols(dh, n_split)
+    assert cols % 4 == 0 and dh <= n_split * cols < dh + 4 * n_split
+    for rank in range(n_split):  # each CTA writes its slice of the columns (maybe none)
+        c = slice(min(dh, rank * cols), min(dh, (rank + 1) * cols))
+        out[..., c] = sum(w_ * a[..., c] for w_, (_, _, a) in zip(w, parts)) * inv
+    return out.to(q.dtype)
+
+
 @pytest.mark.parametrize("nv,sms", [(1, 132), (37, 132), (300, 132), (300, 4), (1100, 132)])
 def test_decode_attention_launch_args_cache_layout(nv, sms):
-    """The (B, T, Hkv, dh) cache reaches the kernel as strides, split into chunks whose
-    partial softmaxes combine to the whole; slots >= n_valid are never read."""
+    """The (B, T, Hkv, dh) cache reaches the kernel as strides; the CTAs of a cluster
+    split the valid tiles and their partial softmaxes combine to the whole (fp32)."""
     rng = np.random.default_rng(9)
     B, T, Hkv, G, dh = 2, 1100, 2, 5, 32
     q = torch.from_numpy(rng.standard_normal((B, Hkv, G, dh), dtype=np.float32))
     kc = torch.from_numpy(rng.standard_normal((B, T, Hkv, dh), dtype=np.float32))
     vc = torch.from_numpy(rng.standard_normal((B, T, Hkv, dh), dtype=np.float32))
+    kc[:, nv:], vc[:, nv:] = float("nan"), float("nan")  # stale slots are never read
     args = dec_kernel.launch_args(q, kc.transpose(1, 2), vc.transpose(1, 2), nv, scale=None,
                                   sms=sms)
     assert args[:5] == (B, Hkv, G, T, dh) and args[11] == nv
-    chunk, n_split, scale = args[12:15]
-    assert chunk % dec_kernel.TILE == 0 and (n_split - 1) * chunk < nv <= n_split * chunk
-    ks = _gather(kc, (B, Hkv, nv, dh), args[5:8])
-    vs = _gather(vc, (B, Hkv, nv, dh), args[8:11])
-    parts = []  # pass 1: (m, l, acc) of each chunk
-    for c in range(n_split):
-        s = torch.einsum("bhgd,bhkd->bhgk", q, ks[:, :, c * chunk:(c + 1) * chunk]) * scale
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        parts.append((m, p.sum(-1, keepdim=True), p @ vs[:, :, c * chunk:(c + 1) * chunk]))
-    M = torch.stack([m for m, _, _ in parts]).amax(0)  # pass 2
-    acc = sum(torch.exp(m - M) * a for m, _, a in parts)
-    den = sum(torch.exp(m - M) * l_ for m, l_, _ in parts)
-    ref = dec_ops.decode_attention_cache(q.view(B, 1, Hkv, G, dh), kc, vc, nv)[:, 0]
-    np.testing.assert_allclose((acc / den).numpy(), ref.numpy(), atol=2e-5)
+    assert args[14] == 0 and args[16:19] == (0, 0, nv)  # fp32: no ring, no TMA boxes
+    out = _replay_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), args)
+    ref = dec_ops.decode_attention_cache(q.view(B, 1, Hkv, G, dh), kc.nan_to_num(0.0),
+                                         vc.nan_to_num(0.0), nv)[:, 0]
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5)
+
+
+def _check_plan(plan, nv, B, Hkv, G, dh, tensor_cores):
+    """Every valid slot is read by exactly one CTA of its cluster, no CTA is
+    empty, tile counts differ by at most one, and the plan fits the card."""
+    assert 1 <= plan.n_split <= dec_kernel.MAX_CLUSTER and plan.grid == (plan.n_split, Hkv, B)
+    shares = dec_kernel.cta_tiles(plan, nv)
+    counts = [n for _, n in shares]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    cover = np.zeros(-(-nv // dec_kernel.TILE) * dec_kernel.TILE, np.int64)
+    for t0, n_t in shares:
+        cover[t0 * dec_kernel.TILE:(t0 + n_t) * dec_kernel.TILE] += 1
+        assert t0 * dec_kernel.TILE < nv  # every CTA's first tile holds a valid slot
+    assert (cover == 1).all() and len(cover) - nv < dec_kernel.TILE
+    assert plan.slot_extent == nv  # boxes reach no slot at or past n_valid
+    assert plan.smem <= 232448  # the shared memory one CTA may use on Hopper (227 KB)
+    # the receive area holds what every rank pushes: acc [n][G][ceil(dh / n)], m and l [8][16]
+    recv = dec_kernel.recv_floats(dh)
+    assert plan.n_split * G * dec_kernel.slice_cols(dh, plan.n_split) + 2 * 8 * 16 <= recv
+    if tensor_cores:
+        stage = 2 * dec_kernel.TILE * dh * 2
+        assert plan.box == (dec_kernel.BOX_D, dec_kernel.TILE) and 1 <= plan.stages <= max(counts)
+        assert plan.stages * stage <= dec_kernel.RING_BYTES
+        assert plan.stages == min(max(counts), dec_kernel.RING_BYTES // stage)
+        assert 2 * (plan.smem + 1024) <= 228 * 1024  # two CTAs an SM, with the 1 KB each reserves
+        assert plan.smem == plan.stages * stage + 4 * recv + 8 * plan.stages + 1024
+    else:
+        assert plan.box == (0, 0) and plan.stages == 0
 
 
 @pytest.mark.parametrize("heads", [1, 4, 32, 64, 300])
 def test_decode_split_covers_the_valid_slots(heads):
     for nv in list(range(1, 300)) + [1000, 1100, 2048, 32768]:
-        chunk, n_split = dec_kernel.split_slots(nv, heads, 132)
-        assert chunk % dec_kernel.TILE == 0 and (n_split - 1) * chunk < nv <= n_split * chunk
-        assert heads * n_split <= max(heads, 2 * 132 + heads)  # no more blocks than needed
+        for tc in (True, False):
+            plan = dec_kernel.launch_plan(nv, 1, heads, 5, 128, tensor_cores=tc, sms=132)
+            _check_plan(plan, nv, 1, heads, 5, 128, tc)
+            # no other split has fewer tiles on its critical path (longest CTA x waves)
+            fits, tiles = dec_kernel.resident_estimate(132), -(-nv // dec_kernel.TILE)
+
+            def path(n):
+                per = -(-tiles // n)
+                return per * -(-heads // fits(n, dec_kernel.cta_smem(per, 5, 128, tc)[1]))
+
+            costs = [path(n) for n in range(1, min(8, tiles) + 1)]
+            assert path(plan.n_split) == min(costs) and costs.index(min(costs)) + 1 == plan.n_split
+
+
+def test_decode_launch_plan_counts_waves():
+    """A split whose clusters do not all fit at once pays for a second wave: at
+    the serving shape, 30 resident clusters of 8 (as an H100 reports for ~100 KB
+    CTAs) make 8 CTAs of 3 tiles take two waves, so 6 CTAs of 3 tiles win."""
+    resident = lambda n, smem: {8: 30, 7: 32, 6: 39}.get(n, 264 // n)  # noqa: E731
+    plan = dec_kernel.launch_plan(1100, 4, 8, 5, 128, tensor_cores=True, resident=resident)
+    assert plan.n_split == 6 and [n for _, n in dec_kernel.cta_tiles(plan, 1100)] == [3] * 6
+    roomy = dec_kernel.launch_plan(1100, 4, 8, 5, 128, tensor_cores=True, resident=lambda n, smem: 64)
+    assert roomy.n_split == 6  # 7 and 8 CTAs also have a 3-tile CTA: the smallest split wins
+
+
+@pytest.mark.parametrize("nv", [1, 63, 64, 65, 300, 1100, 2048])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_decode_launch_plan_replay(nv, dh):
+    """The plan over G 1..16 and B * Hkv 2..32, on both kernels."""
+    for G in (1, 2, 5, 6, 16):
+        for B, Hkv in ((1, 2), (2, 2), (2, 4), (4, 4), (4, 8)):
+            for tc in (True, False):
+                plan = dec_kernel.launch_plan(nv, B, Hkv, G, dh, tensor_cores=tc, sms=132)
+                _check_plan(plan, nv, B, Hkv, G, dh, tc)
+
+
+def test_decode_launch_plan_serving_shape():
+    """qwen3-14b's decode at 4 slots: 32 clusters of 6 CTAs (one wave at two an
+    SM), 18 tiles as 3 each, and a 3-stage ring that holds them all."""
+    plan = dec_kernel.launch_plan(1100, 4, 8, 5, 128, tensor_cores=True, sms=132)
+    assert plan.grid == (6, 8, 4) and plan.tiles_per_cta == 3 and plan.stages == 3
+    assert [n for _, n in dec_kernel.cta_tiles(plan, 1100)] == [3] * 6
+    assert plan.smem == 3 * 32768 + 4 * dec_kernel.recv_floats(128) + 24 + 1024
+
+
+@pytest.mark.parametrize("nv,T,G,dh", [(1, 600, 5, 64), (65, 600, 2, 128), (600, 600, 6, 64),
+                                       (1100, 2048, 5, 128), (300, 2048, 16, 128)])
+def test_decode_tma_boxes_model_layout(nv, T, G, dh):
+    """bf16 at dh 64 and 128 takes the TMA path: the boxes over the model-layout
+    cache rebuild its valid rows with zeros past n_valid (a NaN tail is never
+    read), and the cluster's combine rebuilds the attention."""
+    rng = np.random.default_rng(11)
+    B, Hkv = 2, 2
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, dh), dtype=np.float32)).bfloat16()
+    kc = torch.from_numpy(rng.standard_normal((B, T, Hkv, dh), dtype=np.float32)).bfloat16()
+    vc = torch.from_numpy(rng.standard_normal((B, T, Hkv, dh), dtype=np.float32)).bfloat16()
+    ref = dec_ops.decode_attention_cache(q.view(B, 1, Hkv, G, dh), kc, vc, nv)[:, 0]
+    kc[:, nv:], vc[:, nv:] = float("nan"), float("nan")
+    args = dec_kernel.launch_args(q, kc.transpose(1, 2), vc.transpose(1, 2), nv, scale=None)
+    assert args[14] >= 1 and args[16:19] == (dec_kernel.BOX_D, dec_kernel.TILE, nv)  # a ring; extent n_valid
+    out = _replay_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), args)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() < TOL["bfloat16"]
 
 
 def test_decode_attention_launch_args_reject():
@@ -369,3 +509,18 @@ def test_decode_attention_launch_args_reject():
         dec_kernel.launch_args(q, kv, kv, 0, scale=None)
     with pytest.raises(ValueError):  # more query heads per kv head than the kernel holds
         dec_kernel.launch_args(torch.zeros(1, 2, 17, 32), kv, kv, 3, scale=None)
+
+
+def test_decode_attention_launch_args_reject_misaligned():
+    """TMA needs 16-byte aligned bases and outer strides; the fp32-tile path does not."""
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
+    q, kv = z(1, 2, 5, 64), z(1, 2, 16, 64)
+    assert dec_kernel.launch_args(q, kv, kv, 9, scale=None)[16:18] == (64, 64)
+    shifted = z(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)  # base 2 bytes past a boundary
+    padded = z(1, 2, 16, 68)[..., :64]  # rows 136 bytes apart
+    for bad in (shifted, padded):
+        for k, v in ((bad, kv), (kv, bad)):
+            with pytest.raises(ValueError, match="16-byte"):
+                dec_kernel.launch_args(q, k, v, 9, scale=None)
+    f32 = z(1, 2, 16, 65, dt=torch.float32)[..., :64]  # 260-byte rows: fine without TMA
+    assert dec_kernel.launch_args(q.float(), f32, f32, 9, scale=None)[16:18] == (0, 0)

@@ -43,6 +43,7 @@ def test_phase_kernels_rehearsal(monkeypatch):
     assert rec["rmsnorm_residual"]["library_ms"] is None
     (qk,) = rec["rmsnorm"]["extra"]  # the qk-norm's rows, timed beside F.rms_norm
     assert qk["shape"].startswith("x (128,32)") and qk["library_ms"] is not None
+    assert f"cold L2 ({chip_smoke.ROTATION} K/V pairs rotated" in rec["decode_attention"]["shape"]
 
 
 def test_phase_parity_rehearsal():
