@@ -6,22 +6,33 @@
 Phases, each of which fails the run with a non-zero exit:
   1. device  - require CUDA; print the card's name, power limit and count;
   2. build   - compile the CUDA kernels from `src/repro_torch/csrc` (nvcc,
-               sm_90a) and print each kernel's registers, shared memory and spills;
+               sm_90a) and print each kernel's registers, shared memory and
+               spills, and the decode kernel's cluster plans;
   3. kernels - hold each kernel to its plain PyTorch version on the card, at
                the serving shapes and at the JAX package's test sweeps, and
                time kernel, plain version, one library call and the bound
                (decode attention over a rotation of caches, so that its L2
-               is cold, as it is in serving);
-  4. parity  - qwen3-14b at full width and 2 layers in bf16: prefill and 8
-               decode steps through the kernels against the plain path;
+               is cold, as it is in serving); the attention kernels also at
+               h2o-danube's shapes (dh 80 on the tensor cores, a 4096 window),
+               where the kernel launched with the padded width's scale must
+               fail its check (ATTN_BAR_NOTE);
+  4. parity  - each of the six dense configs at full width and 2 layers in
+               bf16: prefill and 8 decode steps through the kernels against
+               the plain path, h2o-danube's prompt past its window; and the
+               plain path's float32 `forward` against its own prefill and
+               decode steps (the ring against a computation without one), and
+               `forward` through the kernels against it;
   5. serve   - qwen3-14b at full width and depth (40 layers, bf16, seeded
                init): 8 requests of 900-1100 prompt tokens over 4 slots,
-               32 new tokens each; every kernel must launch in this phase,
-               decode attention once a layer a decode step;
-  6. trace   - one decode step of that model, timed and traced with
-               torch.profiler: device busy time, idle share, top kernels.
-Then one JSON line of the kernels and, last, the JSON result line.
-Needs one card; imports nothing of JAX.
+               32 new tokens each; then the other five configs at full width
+               and depth (SERVE_TRAFFIC; h2o-danube's prompts pass its
+               window). Every kernel of a config's path must launch, and no
+               other, decode attention once a layer a decode step;
+  6. trace   - after each config's serve, decode steps of that model at its
+               serve shape, timed and traced with torch.profiler: device
+               busy time, idle share, top kernels.
+Then a table of the serve numbers, one JSON line of the kernels and, last,
+the JSON result line. Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,11 +54,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
@@ -59,6 +71,19 @@ PEAK_BF16 = 989e12  # H100 SXM dense tensor-core bf16 FLOP/s (data sheet)
 PEAK_F32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM = 3.35e12  # H100 SXM bytes/s
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# ATTN_BAR_NOTE: an attention output over n keys averages n rows of V, so its
+# typical size is ~sqrt(e / n): 0.026 at n 4096, below the bf16 bar of 3e-2. There
+# the absolute bar alone cannot tell a right kernel from one that, say, scales by
+# the padded width (128 ** -0.5 at dh 80), which moves each output by about a
+# fifth of its size. So bf16 attention is also held to REL_TOL, the norm of the
+# difference over the norm of the plain output, a few times the plain bf16
+# version's own distance from float32 (logged as the bf16 floor at h2o-danube's
+# shapes). At those shapes the kernel is also launched with the padded width's
+# scale, and the check must reject it.
+REL_TOL = 1e-2
+# tolerance of the serving invariant (the float32 forward against prefill and
+# decode steps): the bar of tests/test_decode_equivalence.py
+FORWARD_TOL = 2e-3
 # COLD_L2_NOTE: in serving, each layer's cache is read once a step, with ~26 GB
 # of weights streamed between two reads of it, so it is cold in the 50 MB L2.
 # One (4, 2048, 8, 128) K/V pair is 33.5 MB, and a call reads 18 MB of it: timed
@@ -71,6 +96,16 @@ ROTATION = 8
 # the bf16 outputs reach 16, where one bf16 step is 0.0625: a last-bit
 # difference between two float32 sums (the kernel's and torch's reduction
 # orders) then flips a rounding past the 3e-2 bar without any fault.
+
+# phase 5's traffic for the configs after qwen3-14b (which keeps the defaults of
+# `phase_serve`): h2o-danube's prompts pass its 4096-token window, so that each
+# admission prefills past it and decode reads a full ring; the rest are served
+# at qwen3-14b's prompt lengths with half its requests and new tokens
+SERVE_TRAFFIC = {
+    "h2o_danube_1p8b": dict(requests=8, prompt_len=(4200, 4600), max_new=32, max_len=8192),
+    **{arch: dict(requests=4, prompt_len=(900, 1100), max_new=16, max_len=2048)
+       for arch in ("pixtral_12b", "starcoder2_3b", "minitron_8b", "musicgen_large")},
+}
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:20"),
@@ -143,6 +178,17 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def _rel(a, b) -> float:
+    """Norm of the difference over the norm of `b` (ATTN_BAR_NOTE)."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _padded(dh: int) -> int:
+    """The tensor-core kernels' tile width: whole 64-column swizzle rows."""
+    return -(-dh // 64) * 64
+
+
 # ------------------------------------------------------------------ phase 1-2
 def phase_device() -> str:
     if not torch.cuda.is_available():
@@ -171,17 +217,141 @@ def phase_build() -> None:
             log(f"[build] {fn}: {m.group(1)} registers, {m.group(2) or 0} B static smem, "
                 f"{spills} B spill stores")
             fn = None
-    # the decode kernel's clusters at the serving shape (qwen3-14b, 4 slots, n_valid 1100)
-    plan = dec_kernel.card_plan(1100, 4, 8, 5, 128)
-    log(f"[build] decode_attention serving plan: grid {plan.grid}, clusters of {plan.n_split} CTAs "
-        f"({plan.grid[1] * plan.grid[2]} clusters), {plan.stages}-stage TMA ring, {plan.smem} B "
-        f"shared memory a CTA; cudaOccupancyMaxActiveClusters: "
-        f"{dec_kernel.max_active_clusters(plan, 128)} such clusters resident at once ({sms} SMs)")
+    # the decode kernel's clusters at the serving shapes: qwen3-14b (4 slots, n_valid
+    # 1100) and h2o-danube (dh 80 in padded tiles, a full ring of 4096 slots)
+    for name, (nv, G, dh) in (("qwen3-14b", (1100, 5, 128)), ("h2o-danube-1.8b", (4096, 4, 80))):
+        plan = dec_kernel.card_plan(nv, 4, 8, G, dh)
+        log(f"[build] decode_attention {name} plan: grid {plan.grid}, clusters of {plan.n_split} "
+            f"CTAs ({plan.grid[1] * plan.grid[2]} clusters), {plan.stages}-stage TMA ring, "
+            f"{plan.smem} B shared memory a CTA; cudaOccupancyMaxActiveClusters: "
+            f"{dec_kernel.max_active_clusters(plan, dh)} such clusters resident at once ({sms} SMs)")
 
 
 # -------------------------------------------------------------------- phase 3
+def live_pairs(S: int, window: int | None) -> int:
+    """Query-key pairs a causal attention over S positions computes, in a window if given."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def device_kernels(fn) -> set[str]:
+    """Names of the device kernels that one call of `fn` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return {e.key for e in prof.key_averages() if e.device_type != DeviceType.CPU}
+
+
+def _on_tensor_cores(dev, fn, kernel, name: str, dh: int) -> None:
+    """bf16 at dh 64, 80 or 128 must take the tensor-core kernel: the wrapper must
+    route it there (the C launcher refuses a plan other than the wrapper's), and
+    on the card the profiler, when it records the call, must name that kernel
+    (`name<dh>`). A profiler session that records no device kernel at all says
+    nothing either way, and is logged as such."""
+    if dh not in (64, 80, 128):
+        return
+    if not kernel.on_tensor_cores(torch.bfloat16, dh):
+        raise AssertionError(f"bf16 dh {dh} is routed off the tensor-core path")
+    if dev.type != "cuda":  # the CPU rehearsal runs the plain versions
+        return
+    names = device_kernels(fn)
+    if names and not any(f"{name}<{dh}>" in n for n in names):
+        raise AssertionError(f"bf16 dh {dh} ran off the tensor-core path: {sorted(names)}")
+    log(f"[kernels] {name}<{dh}>: routed there; profiler: "
+        + ("ran" if names else "recorded no device kernel in this session"))
+
+
+def _log_floor(name: str, label: str, ref, ref32) -> None:
+    """The plain bf16 version's own distance from float32 (ATTN_BAR_NOTE)."""
+    log(f"[kernels] {name} {label}: bf16 floor (plain bf16 vs plain float32) max_abs_err "
+        f"{_err(ref, ref32):.3e}, rel_err {_rel(ref, ref32):.3e}")
+
+
+def _flash_timing(rng, dev, check, B, Hq, Hkv, S, dh, window) -> dict:
+    """Flash attention in bf16 at one shape: compared with its plain version, then
+    timed beside it and SDPA (the window as a boolean mask where there is one)."""
+    bf = torch.bfloat16
+    q = _randn(rng, (B, Hq, S, dh), bf, dev)
+    k, v = _randn(rng, (B, Hkv, S, dh), bf, dev), _randn(rng, (B, Hkv, S, dh), bf, dev)
+    kern = lambda: fa_ops.flash_attention_bhsd(q, k, v, window=window)  # noqa: E731
+    _on_tensor_cores(dev, kern, fa_kernel, "flash_attention_tc_kernel", dh)
+    label = f"q ({B},{Hq},{S},{dh}) kv heads {Hkv} bf16 causal" + (f" window {window}" if window else "")
+    ref = attention_ref(q, k, v, window=window)
+    check("flash_attention", label, kern(), ref, bf)
+    if _padded(dh) != dh:
+        check("flash_attention", label, fa_ops.flash_attention_bhsd(
+            q, k, v, window=window, scale=_padded(dh) ** -0.5), ref, bf, wrong=True)
+        _log_floor("flash_attention", label, ref,
+                   attention_ref(q.float(), k.float(), v.float(), window=window))
+    del ref
+    plain = time_ms(lambda: attention_ref(q, k, v, window=window), iters=3)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    else:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    return timing(label, time_ms(kern, iters=50, graph=True),
+                  plain, time_ms(sdpa, iters=10, graph=True),
+                  (2 * B * Hq + 2 * B * Hkv) * S * dh * 2, 4 * dh * live_pairs(S, window) * B * Hq, bf)
+
+
+def _decode_timing(rng, dev, check, B, Hkv, G, T, dh, nv) -> dict:
+    """Decode attention in bf16 at one shape, cache in the model's (B, T, Hkv, dh)
+    layout: compared with its plain version, then timed beside it and SDPA over
+    ROTATION cache pairs (COLD_L2_NOTE). Also logs, not reported, both on one
+    pair (warm L2) and what does not scale with the cache: a one-tile call,
+    cold, and a trivial kernel as one node of a graph (the launch alone)."""
+    bf = torch.bfloat16
+    qd = _randn(rng, (B, Hkv, G, dh), bf, dev)
+    pairs = [tuple(_randn(rng, (B, T, Hkv, dh), bf, dev).transpose(1, 2) for _ in range(2))
+             for _ in range(ROTATION)]
+    kt, vt = pairs[0]
+    q_sdpa = qd.reshape(B, Hkv * G, 1, dh)
+    kern = lambda k_, v_, n=nv: dec_ops.decode_attention(qd, k_, v_, n)  # noqa: E731
+    sdpa = lambda k_, v_: F.scaled_dot_product_attention(  # noqa: E731
+        q_sdpa, k_[:, :, :nv], v_[:, :, :nv], enable_gqa=True)
+    _on_tensor_cores(dev, lambda: kern(kt, vt), dec_kernel, "decode_tc_kernel", dh)
+    rot_mb = ROTATION * 2 * kt.numel() * kt.element_size() / 1e6
+    label = (f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16, cold L2 "
+             f"({ROTATION} K/V pairs rotated, {rot_mb:.1f} MB)")
+    ref = decode_attention_ref(qd, kt, vt, nv)
+    check("decode_attention", label, kern(kt, vt), ref, bf)
+    if _padded(dh) != dh:
+        check("decode_attention", label, dec_ops.decode_attention(
+            qd, kt, vt, nv, scale=_padded(dh) ** -0.5), ref, bf, wrong=True)
+        _log_floor("decode_attention", label, ref,
+                   decode_attention_ref(qd.float(), kt.float(), vt.float(), nv))
+
+    def cold(fn):  # fn(k, v) over the pairs in turn
+        turn = itertools.cycle(pairs)
+        return lambda: fn(*next(turn))
+
+    plain = time_ms(lambda: decode_attention_ref(qd, kt, vt, nv))
+    iters = 6 * ROTATION
+    timed = timing(label, time_ms(cold(kern), iters=iters, graph=True), plain,
+                   time_ms(cold(sdpa), iters=iters, graph=True),
+                   2 * B * Hkv * G * dh * 2 + 2 * B * Hkv * nv * dh * 2, 4 * B * Hkv * G * nv * dh, bf)
+    warm_k, warm_s = (time_ms(lambda: f(kt, vt), iters=iters, graph=True) for f in (kern, sdpa))
+    one_tile = time_ms(cold(lambda k_, v_: kern(k_, v_, min(64, T))), iters=iters, graph=True)
+    z = torch.zeros(16, device=dev)
+    node = time_ms(lambda: z.add_(1), iters=iters, graph=True)
+    log(f"[kernels] decode_attention at {label}: {iters} graph-captured calls over {ROTATION} K/V "
+        f"cache pairs (a pair read again after {ROTATION - 1} x "
+        f"{2 * B * Hkv * nv * dh * 2 / 1e6:.1f} MB of other reads); on one pair (warm L2, "
+        f"not reported): kernel {warm_k:.4f} ms, SDPA {warm_s:.4f} ms; floor: n_valid 64 (one "
+        f"tile per (batch, kv head)) {one_tile:.4f} ms cold, a trivial kernel as a graph node "
+        f"{node:.4f} ms")
+    return timed
+
+
 def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128, S=1024,
                   fa_lens=(1000, 1024, 1100), T=2048, nvs=(1, 1000, 1100, 2048), nv=1100,
+                  danube_fa=(4, 32, 8, 4608, 80, 4096), danube_dec=(4, 8, 4, 4096, 80, 4096),
                   sweeps=True) -> dict:
     """Compare each kernel with its plain version and time it; returns per-kernel records.
 
@@ -189,7 +359,10 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     `fa_lens`, cache fills `nvs`) and, with `sweeps`, at the JAX package's
     kernel-test sweeps; timed at rows x d (and rmsnorm also at the qk-norm's
     rows x heads by dh), S and nv; decode attention and its library call over
-    a rotation of ROTATION caches (see COLD_L2_NOTE).
+    a rotation of ROTATION caches (see COLD_L2_NOTE). The attention kernels
+    are also compared and timed at h2o-danube's serving shapes (`extra`):
+    prefill `danube_fa` = (B, Hq, Hkv, S, dh, window), past its window, and
+    decode `danube_dec` = (B, Hkv, G, T, dh, n_valid) on a full ring.
     """
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
@@ -200,6 +373,24 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
         if not err < tol:
             raise AssertionError(f"{name} {label}: {err} >= {tol}")
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    def check(name, label, out, ref, dt, wrong=False):
+        """Attention against its plain version: the absolute bar and, in bf16, REL_TOL
+        (ATTN_BAR_NOTE). With `wrong`, `out` comes from a wrong kernel call, which
+        the check must reject."""
+        err, rel = _err(out, ref), _rel(out, ref)
+        passes = err < TOL[dt] and (dt != bf or rel < REL_TOL)
+        if wrong:
+            log(f"[kernels] {name} {label}, scale of the padded width {_padded(ref.shape[-1])}: "
+                f"max_abs_err {err:.3e}, rel_err {rel:.3e} (rel tol {REL_TOL:g}): "
+                f"{'accepted' if passes else 'rejected'}")
+            if passes:
+                raise AssertionError(f"{name} {label}: the check accepts the padded width's scale")
+            return
+        note(name, f"{label} rel_err {rel:.3e}" + (f" (rel tol {REL_TOL:g})" if dt == bf else ""),
+             err, TOL[dt])
+        if not passes:
+            raise AssertionError(f"{name} {label}: rel_err {rel} >= {REL_TOL}")
 
     # --- rmsnorm and rmsnorm_residual: hidden rows (eps 1e-5) and qk-norm rows (eps 1e-6)
     norm_cases = [(rows, d, 1e-5, bf), (rows * heads, dh, 1e-6, bf)]
@@ -245,24 +436,16 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     if sweeps:
         fa_cases += [(b, hq, hk, s, e, w, dt)
                      for b, hq, hk, s, e, w in ((2, 4, 4, 256, 64, None), (1, 8, 2, 256, 128, None),
-                                                (2, 4, 2, 384, 64, 128), (1, 2, 1, 300, 32, None))
+                                                (2, 4, 2, 384, 64, 128), (1, 2, 1, 300, 32, None),
+                                                (1, 32, 8, 300, 80, None), (2, 4, 2, 384, 80, 128))
                      for dt in (torch.float32, bf)]
     for b, hq, hk, s, e, w, dt in fa_cases:
         q = _randn(rng, (b, hq, s, e), dt, dev)
         k, v = _randn(rng, (b, hk, s, e), dt, dev), _randn(rng, (b, hk, s, e), dt, dev)
-        note("flash_attention", f"B{b} Hq{hq} Hkv{hk} S{s} dh{e} win{w} {str(dt)[6:]}",
-             _err(fa_ops.flash_attention_bhsd(q, k, v, window=w), attention_ref(q, k, v, window=w)),
-             TOL[dt])
-    q = _randn(rng, (B, Hq, S, dh), bf, dev)
-    k, v = _randn(rng, (B, Hkv, S, dh), bf, dev), _randn(rng, (B, Hkv, S, dh), bf, dev)
-    pairs = S * (S + 1) // 2
-    plain = time_ms(lambda: attention_ref(q, k, v), iters=3)
-    rec["flash_attention"].update(timing(
-        f"q ({B},{Hq},{S},{dh}) kv heads {Hkv} bf16 causal",
-        time_ms(lambda: fa_ops.flash_attention_bhsd(q, k, v), iters=50, graph=True), plain,
-        time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-                iters=50, graph=True),
-        (2 * B * Hq + 2 * B * Hkv) * S * dh * 2, 4 * dh * pairs * B * Hq, bf))
+        check("flash_attention", f"B{b} Hq{hq} Hkv{hk} S{s} dh{e} win{w} {str(dt)[6:]}",
+              fa_ops.flash_attention_bhsd(q, k, v, window=w), attention_ref(q, k, v, window=w), dt)
+    rec["flash_attention"].update(_flash_timing(rng, dev, check, B, Hq, Hkv, S, dh, None))
+    rec["flash_attention"]["extra"] = [_flash_timing(rng, dev, check, *danube_fa)]
 
     # --- decode attention, cache in the model's (B, T, Hkv, dh) layout
     G = Hq // Hkv
@@ -271,51 +454,17 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
         dec_cases += [(b, hk, g, t, e, n, dt)
                       for b, hk, g, t, e, n in ((2, 4, 2, 512, 64, 300), (1, 2, 6, 1024, 128, 1024),
                                                 (2, 8, 1, 512, 64, 1), (1, 2, 4, 600, 32, 77),
-                                                (1, 2, 5, 600, 64, 65), (2, 1, 16, 2048, 128, 1100))
+                                                (1, 2, 5, 600, 64, 65), (2, 1, 16, 2048, 128, 1100),
+                                                (4, 8, 4, 600, 80, 1), (4, 8, 4, 600, 80, 600))
                       for dt in (torch.float32, bf)]
     for b, hk, g, t, e, n, dt in dec_cases:
         qd = _randn(rng, (b, hk, g, e), dt, dev)
         kc, vc = _randn(rng, (b, t, hk, e), dt, dev), _randn(rng, (b, t, hk, e), dt, dev)
         kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
-        note("decode_attention", f"B{b} Hkv{hk} G{g} T{t} dh{e} nv{n} {str(dt)[6:]}",
-             _err(dec_ops.decode_attention(qd, kt, vt, n), decode_attention_ref(qd, kt, vt, n)),
-             TOL[dt])
-    qd = _randn(rng, (B, Hkv, G, dh), bf, dev)
-    pairs = [tuple(_randn(rng, (B, T, Hkv, dh), bf, dev).transpose(1, 2) for _ in range(2))
-             for _ in range(ROTATION)]
-    kt, vt = pairs[0]
-    q_sdpa = qd.reshape(B, Hq, 1, dh)
-    rot_mb = ROTATION * 2 * kt.numel() * kt.element_size() / 1e6
-
-    def cold(fn):  # fn(k, v) over the pairs in turn (COLD_L2_NOTE)
-        turn = itertools.cycle(pairs)
-        return lambda: fn(*next(turn))
-
-    kern = lambda k_, v_: dec_ops.decode_attention(qd, k_, v_, nv)  # noqa: E731
-    sdpa = lambda k_, v_: F.scaled_dot_product_attention(  # noqa: E731
-        q_sdpa, k_[:, :, :nv], v_[:, :, :nv], enable_gqa=True)
-    plain = time_ms(lambda: decode_attention_ref(qd, kt, vt, nv))
-    iters = 6 * ROTATION
-    rec["decode_attention"].update(timing(
-        f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16, cold L2 "
-        f"({ROTATION} K/V pairs rotated, {rot_mb:.1f} MB)",
-        time_ms(cold(kern), iters=iters, graph=True), plain,
-        time_ms(cold(sdpa), iters=iters, graph=True),
-        2 * B * Hq * dh * 2 + 2 * B * Hkv * nv * dh * 2, 4 * B * Hq * nv * dh, bf))
-    warm_k, warm_s = (time_ms(lambda: f(kt, vt), iters=iters, graph=True) for f in (kern, sdpa))
-    log(f"[kernels] decode_attention timing: {iters} graph-captured calls over {ROTATION} K/V "
-        f"cache pairs ({rot_mb:.1f} MB, a pair read again after {ROTATION - 1} x "
-        f"{2 * B * Hkv * nv * dh * 2 / 1e6:.1f} MB of other reads); on one pair (warm L2, "
-        f"not reported): kernel {warm_k:.4f} ms, SDPA {warm_s:.4f} ms")
-    # what does not scale with the cache: one 64-slot tile per (batch, kv head), cold,
-    # and a trivial kernel as one node of a graph (the launch alone)
-    one_tile = time_ms(cold(lambda k_, v_: dec_ops.decode_attention(qd, k_, v_, min(64, T))),
-                       iters=iters, graph=True)
-    z = torch.zeros(16, device=dev)
-    node = time_ms(lambda: z.add_(1), iters=iters, graph=True)
-    log(f"[kernels] decode_attention floor: n_valid 64 (one tile per (batch, kv head)) "
-        f"{one_tile:.4f} ms cold; a trivial kernel as a graph node {node:.4f} ms")
-    del pairs, kt, vt
+        check("decode_attention", f"B{b} Hkv{hk} G{g} T{t} dh{e} nv{n} {str(dt)[6:]}",
+              dec_ops.decode_attention(qd, kt, vt, n), decode_attention_ref(qd, kt, vt, n), dt)
+    rec["decode_attention"].update(_decode_timing(rng, dev, check, B, Hkv, G, T, dh, nv))
+    rec["decode_attention"]["extra"] = [_decode_timing(rng, dev, check, *danube_dec)]
     for name, r in rec.items():
         for t in [r, *r.get("extra", [])]:
             lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
@@ -326,7 +475,7 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
 
 
 # -------------------------------------------------------------------- phase 4
-def phase_parity(dev, cfg, *, batch=2, prompt=300, steps=8, seed=0) -> dict:
+def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
     """Kernel path against the plain path on the card, both in the config's dtype.
 
     Tolerance: twice the bf16 floor, the distance between the plain path in
@@ -335,7 +484,17 @@ def phase_parity(dev, cfg, *, batch=2, prompt=300, steps=8, seed=0) -> dict:
     places (the fused residual norm reads the unrounded sum; the kernels sum
     in another order), so each lies about one floor from the float32 result
     and, by the triangle inequality, at most two floors from the other.
+
+    The prompt is 300 tokens, or 104 past the sliding window where there is
+    one, so that the windowed prefill writes a ring and each decode step reads
+    a full one (n_valid = W). The plain float32 path's `forward` over the same
+    tokens, which keeps no cache, must then give its prefill and decode
+    logits within FORWARD_TOL: the serving invariant, ring order included.
+    `forward` through the kernels (flash attention without a cache) is held
+    to that float32 forward at the tolerance above.
     """
+    if prompt is None:
+        prompt = 300 if cfg.sliding_window is None else cfg.sliding_window + 104
     params = Model(cfg).init(seed, dev)
     params32 = cast_tree(params, torch.float32)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -358,13 +517,29 @@ def phase_parity(dev, cfg, *, batch=2, prompt=300, steps=8, seed=0) -> dict:
     floor = _err(runs["plain"], runs["plain_fp32"])
     tol = 2 * floor
     agree = (runs["kernels"].argmax(-1) == runs["plain"].argmax(-1)).float().mean().item()
-    log(f"[parity] {cfg.name} d{cfg.d_model} L{cfg.num_layers} {cfg.dtype}: prefill + {steps} "
-        f"decode steps, max_abs_err kernels vs plain {err:.4e}, tolerance {tol:.4e} (2 x bf16 "
+    ring = "" if cfg.sliding_window is None else f" (window {cfg.sliding_window}: decode on a full ring)"
+    log(f"[parity] {cfg.name} d{cfg.d_model} L{cfg.num_layers} {cfg.dtype}: prefill {prompt}{ring} + "
+        f"{steps} decode steps, max_abs_err kernels vs plain {err:.4e}, tolerance {tol:.4e} (2 x bf16 "
         f"floor {floor:.4e}), kernels vs fp32 {_err(runs['kernels'], runs['plain_fp32']):.4e}, "
         f"max |logit| {runs['plain'].abs().max().item():.3f}, greedy agreement {agree:.4f}")
     if not err <= tol:
         raise AssertionError(f"parity: {err} > {tol}")
-    return {"max_abs_err": err, "tolerance": tol, "greedy_agreement": agree}
+    fwd = {}
+    for label, model, p in (("kernels", Model(cfg), params),
+                            ("plain_fp32", Model(cfg32, kernels=False), params32)):
+        hidden, _ = model.forward(p, {"tokens": toks})
+        fwd[label] = model._head(p, hidden[:, prompt - 1:prompt + steps]).transpose(0, 1)
+        del hidden
+    fwd_err = _err(fwd["plain_fp32"], runs["plain_fp32"])
+    kfwd_err = _err(fwd["kernels"], fwd["plain_fp32"])
+    log(f"[parity] {cfg.name} forward over {prompt + steps} tokens: float32 plain vs its prefill + "
+        f"decode steps max_abs_err {fwd_err:.4e} (tol {FORWARD_TOL:g}); through the kernels vs "
+        f"float32 plain {kfwd_err:.4e} (tolerance {tol:.4e})")
+    if not fwd_err < FORWARD_TOL:
+        raise AssertionError(f"parity: forward {fwd_err} >= {FORWARD_TOL}")
+    if not kfwd_err <= tol:
+        raise AssertionError(f"parity: forward through the kernels {kfwd_err} > {tol}")
+    return {"max_abs_err": err, "tolerance": tol, "greedy_agreement": agree, "forward_err": fwd_err}
 
 
 def cast_tree(params: dict, dtype) -> dict:
@@ -374,8 +549,17 @@ def cast_tree(params: dict, dtype) -> dict:
 
 
 # -------------------------------------------------------------------- phase 5
+def used_kernels(cfg) -> list[str]:
+    """The kernels of a config's serve path: LayerNorm configs have no norm kernel."""
+    return ["rmsnorm", "rmsnorm_residual"] * (cfg.norm == "rmsnorm") + ["flash_attention",
+                                                                        "decode_attention"]
+
+
 def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_new=32,
                 max_len=2048, seed=0) -> dict:
+    """Serve `requests` seeded prompts through `launch.serve.run` at the config's
+    full width and depth; every kernel of its path must launch, and no other,
+    decode attention once a layer a decode step."""
     build.reset_launches()
     out = serve_run(cfg, device=dev, requests=requests, slots=slots, prompt_len=prompt_len,
                     max_new=max_new, max_len=max_len, seed=seed)
@@ -385,22 +569,35 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
         raise AssertionError("serve: not every request finished with its tokens")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
         raise AssertionError("serve: token out of the vocabulary")
-    missing = [k for k, n in launches.items() if n == 0]
+    used = used_kernels(cfg)
+    missing = [k for k in used if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
+    stray = [k for k, n in launches.items() if n and k not in used]
+    if stray:
+        raise AssertionError(f"serve: {cfg.name} launched kernels off its path: {stray}")
     steps = out["decode_steps"]
     if launches["decode_attention"] != cfg.num_layers * steps:
         raise AssertionError(f"serve: {launches['decode_attention']} decode-attention launches in "
                              f"{steps} decode steps of {cfg.num_layers} layers")
     mem = out["max_memory_allocated"]
     admissions = launches["flash_attention"] // cfg.num_layers  # one flash launch a layer a prefill
+    shortest = min(len(r.prompt) for r in done)
+    # every prompt past the window: each admission prefills past it, and each
+    # decode step (position >= the shortest prompt) reads a full ring, n_valid = W
+    full_ring = cfg.sliding_window is not None and shortest > cfg.sliding_window
+    if full_ring:
+        log(f"[serve] {cfg.name}: shortest prompt {shortest} > window {cfg.sliding_window}: every "
+            f"admission prefills past the window, every decode step reads a full ring "
+            f"(n_valid {cfg.sliding_window})")
     log(f"[serve] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype}: {len(done)} requests, "
         f"{out['prompt_tokens']} prompt tokens, {out['tokens']} new tokens in {out['seconds']:.3f}s "
         f"({out['tokens'] / out['seconds']:.2f} tok/s); prefill {out['prefill_seconds']:.3f}s "
         f"({out['prefill_seconds'] / max(admissions, 1):.3f}s per admission, {admissions} admissions), "
         f"decode {steps} steps {1e3 * out['decode_seconds'] / max(steps, 1):.3f} ms/step; "
         f"max_memory_allocated {mem / 2**30 if mem else 0:.2f} GiB; launches {launches}")
-    return {**{k: v for k, v in out.items() if k != "requests"}, "launches": launches}
+    return {**{k: v for k, v in out.items() if k != "requests"}, "launches": launches,
+            "admissions": admissions, "full_ring": full_ring}
 
 
 # -------------------------------------------------------------------- phase 6
@@ -437,8 +634,9 @@ def phase_trace(dev, cfg, *, slots=4, prompt=1024, steps=4, seed=0) -> dict:
               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[trace] decode step at {slots} slots, pos ~{prompt}: wall {wall_ms:.3f} ms (host clock, "
-        f"untraced), device busy {device_ms:.3f} ms, idle share {1 - device_ms / wall_ms:.3f}")
+    log(f"[trace] {cfg.name} decode step at {slots} slots, pos ~{prompt}: wall {wall_ms:.3f} ms "
+        f"(host clock, untraced), device busy {device_ms:.3f} ms, "
+        f"idle share {1 - device_ms / wall_ms:.3f}")
     for e in top:
         log(f"[trace]   {e.self_device_time_total / 1e3 / steps:9.3f} ms/step  "
             f"{e.count // steps:5d} calls/step  {e.key[:90]}")
@@ -449,21 +647,44 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t0 = time.perf_counter()
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
     rec = phase_kernels(dev)
+    for arch in ARCHS:
+        phase_parity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed)
+        torch.cuda.empty_cache()
     full = get_config("qwen3_14b")
-    phase_parity(dev, dataclasses.replace(full, num_layers=2), seed=args.seed)
+    serves = {full.name: phase_serve(dev, full, seed=args.seed)}
     torch.cuda.empty_cache()
-    serve = phase_serve(dev, full, seed=args.seed)
-    torch.cuda.empty_cache()
-    phase_trace(dev, full, seed=args.seed)
+    serves[full.name]["trace"] = phase_trace(dev, full, seed=args.seed)
+    for arch, traffic in SERVE_TRAFFIC.items():
+        cfg = get_config(arch)
+        serves[cfg.name] = serve = phase_serve(dev, cfg, seed=args.seed, **traffic)
+        if cfg.sliding_window is not None and not serve["full_ring"]:
+            raise AssertionError(f"serve: {cfg.name}'s traffic never filled its window")
+        torch.cuda.empty_cache()
+        serve["trace"] = phase_trace(dev, cfg, prompt=sum(traffic["prompt_len"]) // 2, seed=args.seed)
+        torch.cuda.empty_cache()
+    log("[serve] config            tok/s   prefill s/admission   decode ms/step   peak GiB   "
+        "traced step: wall ms, device ms, idle")
+    for name, r in serves.items():
+        t = r["trace"]
+        log(f"[serve] {name:17s} {r['tokens'] / r['seconds']:7.2f}   "
+            f"{r['prefill_seconds'] / max(r['admissions'], 1):19.3f}   "
+            f"{1e3 * r['decode_seconds'] / max(r['decode_steps'], 1):14.3f}   "
+            f"{(r['max_memory_allocated'] or 0) / 2**30:8.2f}   "
+            f"{t['wall_ms']:.3f}, {t['device_ms']:.3f}, {1 - t['device_ms'] / t['wall_ms']:.3f}")
+    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s")
+    # launches: each serve run's counts (set to 0 before it, read after it), summed
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": serve["launches"][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": sum(r["launches"][name] for r in serves.values()),
+         "launches_by_config": {c: r["launches"][name] for c, r in serves.items()},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
          **({"extra_shapes": r["extra"]} if "extra" in r else {})}

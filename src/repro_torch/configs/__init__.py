@@ -6,9 +6,24 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCHS = ["qwen3_14b"]
+ARCHS = [
+    "qwen3_14b",
+    "starcoder2_3b",
+    "h2o_danube_1p8b",
+    "minitron_8b",
+    "musicgen_large",
+    "pixtral_12b",
+]
 
-ALIASES = {"qwen3-14b": "qwen3_14b"}
+# CLI ids (assignment spelling) -> module names
+ALIASES = {
+    "qwen3-14b": "qwen3_14b",
+    "starcoder2-3b": "starcoder2_3b",
+    "h2o-danube-1.8b": "h2o_danube_1p8b",
+    "minitron-8b": "minitron_8b",
+    "musicgen-large": "musicgen_large",
+    "pixtral-12b": "pixtral_12b",
+}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -20,7 +20,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family this port runs yet)
+    family: str  # dense | vlm | audio (the families this port runs yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -33,10 +33,12 @@ class ModelConfig:
     gated_mlp: bool = True
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    sliding_window: int | None = None
+    sliding_window: int | None = None  # SWA window (h2o-danube)
+    input_mode: str = "tokens"  # tokens | embeds (audio/vlm stub frontends)
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # activation compute dtype
     param_dtype: str = "bfloat16"
+    loss_chunk: int = 2048  # sequence-chunked CE to bound logits memory
 
     @property
     def q_dim(self) -> int:
@@ -67,6 +69,7 @@ class ModelConfig:
             sliding_window=16 if self.sliding_window else None,
             param_dtype="float32",
             dtype="float32",
+            loss_chunk=32,
         )
         small.update(overrides)
         return replace(self, **small)

@@ -21,7 +21,7 @@
 // (`launch_plan`, which sizes the split by how many clusters the card holds
 // at once, `decode_attention_max_active_clusters` below) and checked here.
 //
-// 1. bf16, dh 64 and 128 (the model's path): decode_tc_kernel, one warpgroup.
+// 1. bf16, dh 64, 80 and 128 (the model's path): decode_tc_kernel, one warpgroup.
 //   - Bytes in flight: K and V are read by TMA straight from the model's
 //     (B, T, Hkv, dh) cache through 4-D maps over (dh, Hkv, slots, B), boxes
 //     of 64 dh columns by 64 slots, 128-byte swizzled, bf16 in shared memory.
@@ -38,7 +38,12 @@
 //     A operand of O += P.V (V MN-major), as in the flash kernel. At G = 5, 59
 //     of the 64 rows are padding; that costs no bytes, which bound the kernel.
 //   - The zero-filled rows score 0, so the slot < n_valid mask stays explicit.
-// 2. fp32 (any dh) and bf16 at dh 32: decode_tile_kernel, fp32 FMAs from
+//   - dh 80 (h2o-danube) runs in tiles of 128 columns (two boxes) over maps
+//     whose dh extent stays 80: TMA zero-fills columns 80-127, so no extra
+//     byte is read; Q.K^T takes only the 5 real k16 steps (Q's registers hold
+//     the real columns alone), P.V is the n128 product, and the partial keeps
+//     only the 80 real columns of acc.
+// 2. fp32 (dh 32, 64, 80, 128) and bf16 at dh 32: decode_tile_kernel, fp32 FMAs from
 //   float32 shared-memory tiles loaded through the strides (TF32 cannot hold
 //   the 2e-5 bar); slots at or past n_valid are never read.
 //
@@ -85,7 +90,9 @@ struct Recv {
 };
 
 template <int DH>
-__host__ __device__ constexpr int tc_stage_bytes() { return 2 * TILE * DH * 2; }  // a K tile and a V tile
+__host__ __device__ constexpr int tc_stage_bytes() {  // a K tile and a V tile, in whole boxes
+  return 2 * TILE * sw128_tile_cols(DH) * 2;
+}
 template <int DH>
 __host__ __device__ constexpr int tc_smem_bytes(int stages) {  // ring, receive area, mbarriers, slack to align
   return stages * tc_stage_bytes<DH>() + 4 * Recv<DH>::FLOATS + 8 * stages + 1024;
@@ -164,10 +171,10 @@ __device__ __forceinline__ void push_combine(const float* part, float* recv, T* 
 template <int DH>
 __device__ __forceinline__ void load_tile(const CUtensorMap* kmap, const CUtensorMap* vmap,
                                           uint32_t sK, uint32_t bar, int slot0, int h, int b) {
-  constexpr int KV_BYTES = TILE * DH * 2;
-  mbar_expect_tx(bar, 2 * KV_BYTES);  // zero-filled rows past n_valid count too
+  constexpr int DP = sw128_tile_cols(DH), KV_BYTES = TILE * DP * 2;
+  mbar_expect_tx(bar, 2 * KV_BYTES);  // zero-filled rows and columns count too
 #pragma unroll
-  for (int hh = 0; hh < DH / BOX_D; ++hh) {
+  for (int hh = 0; hh < DP / BOX_D; ++hh) {
     tma_load_4d(sK + hh * TILE * ROW, kmap, bar, hh * BOX_D, h, slot0, b);
     tma_load_4d(sK + KV_BYTES + hh * TILE * ROW, vmap, bar, hh * BOX_D, h, slot0, b);
   }
@@ -180,12 +187,13 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], const uint32_t (&qa)[DH
   for (int e = 0; e < 32; ++e) s[e] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)  // k16 steps over dh: 4 per 128-byte box
+  for (int kk = 0; kk < DH / 16; ++kk)  // k16 steps over the real dh: 4 per 128-byte box
     wgmma_m64n64k16_rs<0>(s, qa[kk], sw128_desc(kt + (kk / 4) * TILE * ROW + (kk % 4) * 32, 16, 1024));
   wgmma_commit();
 }
 
-// Shared memory: the ring [stages] x (K tile [DH/64][64][64], V tile likewise),
+// Shared memory: the ring [stages] x (K tile [DP/64][64][64], V tile likewise;
+// DP is dh in whole 64-column boxes),
 // the receive area of the combine, then one mbarrier a stage. Every tile is
 // 1024-byte aligned.
 template <int DH>
@@ -193,7 +201,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 decode_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                  const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int Hkv,
                  int G, int n_valid, int tiles_per_cta, int stages, float scale_log2) {
-  constexpr int KV_BYTES = TILE * DH * 2, STAGE = tc_stage_bytes<DH>();
+  static_assert(DH % 16 == 0, "Q.K^T takes dh in k16 steps");
+  constexpr int DP = sw128_tile_cols(DH), KV_BYTES = TILE * DP * 2, STAGE = tc_stage_bytes<DH>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~static_cast<uintptr_t>(1023));
@@ -231,9 +240,9 @@ decode_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     }
   }
 
-  float acc[DH / 2];
+  float acc[DP / 2];  // columns past DH stay zero
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   // rows r0 and r0 + 8; l is this thread's share of the row sum
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
@@ -278,13 +287,13 @@ decode_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     l0 = l0 * c0 + ps0;
     l1 = l1 * c1 + ps1;
 #pragma unroll
-    for (int e = 0; e < DH / 2; ++e) acc[e] *= ((e >> 1) & 1) ? c1 : c0;
+    for (int e = 0; e < DP / 2; ++e) acc[e] *= ((e >> 1) & 1) ? c1 : c0;
 
     wgmma_fence();  // P and the rescaled accumulator were written by this thread
 #pragma unroll
     for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 slots a step: two 8-row groups of V
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-      wgmma_pv<DH>(acc, a, sw128_desc(vt + kk * 16 * ROW, TILE * ROW, 1024));
+      wgmma_pv<DP>(acc, a, sw128_desc(vt + kk * 16 * ROW, TILE * ROW, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -303,7 +312,7 @@ decode_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   float* part = reinterpret_cast<float*>(smem);  // acc [G][DH], m [G], l [G]
   if (r0 < G) {  // warp 0 holds every row < G (MAXG = 16)
 #pragma unroll
-    for (int e = 0; e < DH / 2; ++e) {
+    for (int e = 0; e < DH / 2; ++e) {  // the fragments of the DH real columns
       const int row = r0 + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
       if (row < G) part[row * DH + col] = acc[e];
     }
@@ -484,12 +493,14 @@ extern "C" int launch_decode_attention(const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
   const long long st[6] = {ksb, ksh, kst, vsb, vsh, vst};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 128);
+  const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 80 || dh == 128);
   if (tc_path != (box_d != 0) || (tc_path && (box_d != BOX_D || box_slots != TILE)) ||
       (!tc_path && (box_slots != 0 || stages != 0)))
     return (int)cudaErrorInvalidValue;
   if (tc_path && dh == 64)
     return launch_tc<64>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
+  if (tc_path && dh == 80)
+    return launch_tc<80>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
   if (tc_path)
     return launch_tc<128>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
   if (dtype == kBF16 && dh == 32)
@@ -498,6 +509,7 @@ extern "C" int launch_decode_attention(const void* q, const void* k, const void*
   switch (dh) {
     case 32: return launch_tile<float, 32>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
     case 64: return launch_tile<float, 64>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
+    case 80: return launch_tile<float, 80>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
     case 128: return launch_tile<float, 128>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -506,12 +518,16 @@ extern "C" int launch_decode_attention(const void* q, const void* k, const void*
 // How many clusters of n_split CTAs of the kernel that (dtype, dh) takes, with
 // `smem` bytes each, the card holds at once; a negative cudaError_t on failure.
 extern "C" int decode_attention_max_active_clusters(int dtype, int dh, int n_split, int smem) {
-  const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 128);
+  const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 80 || dh == 128);
   const void* kern = nullptr;
-  if (tc_path) kern = dh == 64 ? (const void*)decode_tc_kernel<64> : (const void*)decode_tc_kernel<128>;
+  if (tc_path)
+    kern = dh == 64   ? (const void*)decode_tc_kernel<64>
+           : dh == 80 ? (const void*)decode_tc_kernel<80>
+                      : (const void*)decode_tc_kernel<128>;
   else if (dtype == kBF16 && dh == 32) kern = (const void*)decode_tile_kernel<__nv_bfloat16, 32>;
   else if (dtype == kF32 && dh == 32) kern = (const void*)decode_tile_kernel<float, 32>;
   else if (dtype == kF32 && dh == 64) kern = (const void*)decode_tile_kernel<float, 64>;
+  else if (dtype == kF32 && dh == 80) kern = (const void*)decode_tile_kernel<float, 80>;
   else if (dtype == kF32 && dh == 128) kern = (const void*)decode_tile_kernel<float, 128>;
   if (kern == nullptr || n_split < 1 || n_split > MAX_SPLIT) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

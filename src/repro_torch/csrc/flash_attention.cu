@@ -14,7 +14,7 @@
 //
 // Two kernels, chosen explicitly by (dtype, dh) in the launcher:
 //
-// 1. bf16, dh 64 and 128 (the model's path): flash_attention_tc_kernel.
+// 1. bf16, dh 64, 80 and 128 (the model's path): flash_attention_tc_kernel.
 //   A block takes 128 query rows of one (batch, query head): two warpgroups,
 //   64 rows each. TMA loads Q once and walks the K/V tiles (64 keys) through
 //   a 2-stage ring in shared memory, each stage completed on an mbarrier, so
@@ -27,7 +27,11 @@
 //   operand V is MN-major (keys are rows, dh contiguous) and so transposed.
 //   The tensor maps read the model's (B, S, H, dh) layout in place as 4-D
 //   (dh, heads, S, B) boxes of 64 dh columns (one 128-byte swizzle row);
-//   rows past S arrive as zeros, so the key < S mask stays explicit. Output
+//   rows past S arrive as zeros, so the key < S mask stays explicit. dh 80
+//   (h2o-danube) runs in tiles of 128 columns (two boxes) over maps whose dh
+//   extent stays 80: TMA zero-fills columns 80-127, so no extra byte is read.
+//   Q.K^T walks only the 5 real k16 steps; P.V is the n128 product, whose
+//   columns past 80 come out zero and are never stored. Output
 //   rows are staged through the Q tile and leave as guarded 16-byte stores.
 //   The loop starts at the window's first live tile and stops at the causal
 //   diagonal; each warpgroup skips the tiles that are dead for its rows.
@@ -36,7 +40,7 @@
 //   products. Within a block the loads overlap the products through the
 //   ring; there is no warp specialisation yet.
 //
-// 2. fp32 (any dh) and bf16 at dh 32: flash_attention_kernel, fp32 FMAs from
+// 2. fp32 (dh 32, 64, 80, 128) and bf16 at dh 32: flash_attention_kernel, fp32 FMAs from
 //   float32 shared-memory tiles. fp32 has no tensor-core route that keeps
 //   the 2e-5 bar (TF32 keeps ~3 decimal digits), and dh 32 is only in the
 //   sweeps. One block of 256 threads per (64-row q block, query head,
@@ -163,11 +167,13 @@ constexpr int STAGES = 2;     // K/V ring depth
 constexpr int BOX_D = SW128_COLS;  // dh columns of one TMA box: one 128-byte swizzle row
 constexpr int ROW = BOX_D * 2;  // bytes of a tile row
 
-// Shared memory: Q [DH/64][BQ][64], then K and V rings [STAGES][DH/64][BK][64],
-// then the mbarriers (Q's, one per stage). Every tile is 1024-byte aligned.
+// Shared memory: Q [DP/64][BQ][64], then K and V rings [STAGES][DP/64][BK][64],
+// then the mbarriers (Q's, one per stage); DP is dh in whole 64-column boxes.
+// Every tile is 1024-byte aligned.
 template <int DH>
 struct Smem {
-  static constexpr int Q_BYTES = BQ * DH * 2, KV_BYTES = BK * DH * 2;
+  static constexpr int DP = sw128_tile_cols(DH);
+  static constexpr int Q_BYTES = BQ * DP * 2, KV_BYTES = BK * DP * 2;
   static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + STAGES) + 1024;  // + slack to align the base
@@ -181,7 +187,7 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* kmap, const CUtensorM
   const uint32_t bar = barKV + 8 * st;
   mbar_expect_tx(bar, 2 * Smem<DH>::KV_BYTES);
 #pragma unroll
-  for (int hh = 0; hh < DH / BOX_D; ++hh) {
+  for (int hh = 0; hh < Smem<DH>::DP / BOX_D; ++hh) {
     const uint32_t off = st * Smem<DH>::KV_BYTES + hh * BK * ROW;
     tma_load_4d(sK + off, kmap, bar, hh * BOX_D, hk, key0, b);
     tma_load_4d(sV + off, vmap, bar, hh * BOX_D, hk, key0, b);
@@ -196,7 +202,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           int S, int G, long long osb, long long osh, long long oss, int window,
                           float scale_log2) {
   using L = Smem<DH>;
-  constexpr int NH = DH / BOX_D;  // boxes per tile row
+  static_assert(DH % 16 == 0, "Q.K^T takes dh in k16 steps");
+  constexpr int DP = L::DP, NH = DP / BOX_D;  // padded tile width, boxes per tile row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~static_cast<uintptr_t>(1023));
@@ -231,9 +238,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     load_kv<DH>(&kmap, &vmap, sK, sV, barKV, 0, kb_lo * BK, hk, b);
   }
 
-  float acc[DH / 2];
+  float acc[DP / 2];  // columns past DH stay zero
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   // this thread's two rows (r0, r0 + 8); l is its share of the row sum
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   const int r0 = wq0 + warp * 16 + (lane >> 2);
@@ -249,7 +256,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       float s[32] = {};  // the first k16 step overwrites it (scale-d = 0)
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {  // k16 steps over dh: 4 per 128-byte box
+      for (int kk = 0; kk < DH / 16; ++kk) {  // k16 steps over the real dh: 4 per 128-byte box
         const uint32_t col = (kk % 4) * 32;  // 16 bf16 along the swizzled row
         const uint64_t da = sw128_desc(sQ + (kk / 4) * BQ * ROW + wg * WG_ROWS * ROW + col, 16, 1024);
         const uint64_t db = sw128_desc(kt + (kk / 4) * BK * ROW + col, 16, 1024);
@@ -300,13 +307,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       l0 = l0 * c0 + ps0;
       l1 = l1 * c1 + ps1;
 #pragma unroll
-      for (int e = 0; e < DH / 2; ++e) acc[e] *= ((e >> 1) & 1) ? c1 : c0;
+      for (int e = 0; e < DP / 2; ++e) acc[e] *= ((e >> 1) & 1) ? c1 : c0;
 
       wgmma_fence();  // P and the rescaled accumulator were written by this thread
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {  // 16 keys a step: two 8-row groups of V
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-        wgmma_pv<DH>(acc, a, sw128_desc(vt + kk * 16 * ROW, BK * ROW, 1024));
+        wgmma_pv<DP>(acc, a, sw128_desc(vt + kk * 16 * ROW, BK * ROW, 1024));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -317,6 +324,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // epilogue: finish the row sums, stage this warpgroup's rows in its part of
   // the Q tile (same swizzle, conflict-free), then 16-byte stores of rows < S
+  // and of the DH real columns
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -383,7 +391,7 @@ static int launch_typed(const void* q, const void* k, const void* v, void* o, in
 
 
 // box_d, box_q, box_k: the TMA boxes the caller planned for the tensor-core
-// path (64, 128, 64), or zeros for the fp32-tile kernel; any other value is
+// path (64, 128, 64; dh 80 reads two boxes of 64 columns), or zeros for the fp32-tile kernel; any other value is
 // refused, so the Python plan and this file cannot drift apart silently.
 extern "C" int launch_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                       int Hq, int Hkv, int S, int dh, long long qsb,
@@ -395,10 +403,11 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
   if (B == 0 || S == 0) return 0;
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 128);
+  const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 80 || dh == 128);
   if (tc_path != (box_d != 0) || (tc_path && (box_d != tc::BOX_D || box_q != tc::BQ || box_k != tc::BK)))
     return (int)cudaErrorInvalidValue;
   if (tc_path && dh == 64) return tc::launch<64>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
+  if (tc_path && dh == 80) return tc::launch<80>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
   if (tc_path) return tc::launch<128>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
   if (dtype == kBF16 && dh == 32)
     return launch_typed<__nv_bfloat16, 32>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
@@ -406,6 +415,7 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
   switch (dh) {
     case 32: return launch_typed<float, 32>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
     case 64: return launch_typed<float, 64>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
+    case 80: return launch_typed<float, 80>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
     case 128: return launch_typed<float, 128>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

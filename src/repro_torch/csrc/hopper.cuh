@@ -159,6 +159,13 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a
 // ---------------------------------------------------------------- tensor maps (host)
 constexpr int SW128_COLS = 64;  // bf16 columns of one 128-byte swizzle row: a box's width
 
+// Columns of a shared-memory tile that holds rows of `cols` bf16 columns: whole
+// boxes. A map's extent stays `cols`, so TMA zero-fills the columns past it
+// (dh 80 in tiles of 128: the zeros add nothing to Q.K^T and give zero columns of P.V).
+__host__ __device__ constexpr int sw128_tile_cols(int cols) {
+  return (cols + SW128_COLS - 1) / SW128_COLS * SW128_COLS;
+}
+
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so that

@@ -18,9 +18,11 @@ the card at once are counted as further waves; on the card, how many fit is
 asked of the CUDA runtime (`cudaOccupancyMaxActiveClusters`), since clusters
 must sit within one GPC and so pack less densely than single CTAs.
 
-bf16 at dh 64 and 128 takes the tensor-core kernel, which loads K and V with
-TMA through 4-D maps over (dh, Hkv, slots, B) whose slot extent is n_valid;
-TMA needs 16-byte aligned base addresses and outer strides. float32, and
+bf16 at dh 64, 80 and 128 takes the tensor-core kernel, which loads K and V
+with TMA through 4-D maps over (dh, Hkv, slots, B) whose slot extent is
+n_valid; dh 80 is read as two boxes, the second zero-filled past column 80,
+so its ring stages are sized for 128 columns (`tile_cols`). TMA needs
+16-byte aligned base addresses and outer strides. float32, and
 bf16 at dh 32, take the fp32-tile kernel, which reads through the strides.
 """
 
@@ -34,14 +36,24 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
-TC_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core kernel
+HEAD_DIMS = (32, 64, 80, 128)
+TC_HEAD_DIMS = (64, 80, 128)  # bf16 head dims of the tensor-core kernel
 MAX_GROUP = 16
 TILE = 64  # cache slots of a tile (the TMA box's rows)
 BOX_D = 64  # dh columns of a TMA box: one 128-byte swizzle row
 MAX_CLUSTER = 8  # CTAs per (batch, kv head): the portable cluster size
 RING_BYTES = 96 * 1024  # a CTA's ring: two CTAs share an SM's 228 KB
 SM_SMEM = 228 * 1024  # shared memory of an SM, of which the runtime reserves 1 KB a CTA
+
+
+def on_tensor_cores(dtype: torch.dtype, dh: int) -> bool:
+    """Whether calls of this dtype and head dim run the tensor-core kernel."""
+    return dtype == torch.bfloat16 and dh in TC_HEAD_DIMS
+
+
+def tile_cols(dh: int) -> int:
+    """Columns of the tensor-core kernel's K and V tiles for head dim `dh`: whole boxes."""
+    return -(-dh // BOX_D) * BOX_D
 
 
 def slice_cols(dh: int, n_split: int) -> int:
@@ -60,7 +72,7 @@ def recv_floats(dh: int) -> int:
 def cta_smem(max_tiles: int, G: int, dh: int, tensor_cores: bool) -> tuple[int, int]:
     """(ring stages, dynamic shared memory bytes) of a CTA that reads up to `max_tiles` tiles."""
     if tensor_cores:
-        stage = 2 * TILE * dh * 2  # a bf16 K tile and a V tile
+        stage = 2 * TILE * tile_cols(dh) * 2  # a bf16 K tile and a V tile
         stages = min(max_tiles, RING_BYTES // stage)
         # ring, receive area, one mbarrier a stage, slack to align the ring to 1024
         return stages, stages * stage + 4 * recv_floats(dh) + 8 * stages + 1024
@@ -139,7 +151,7 @@ def launch_args(q, k, v, n_valid: int, *, scale: float | None, sms: int = 132,
     n_valid = operator.index(n_valid)
     if not 1 <= n_valid <= T:  # with no valid slot the plain softmax and the kernel disagree
         raise ValueError(f"decode_attention: n_valid must be a host int in [1, {T}], got {n_valid!r}")
-    tensor_cores = q.dtype == torch.bfloat16 and dh in TC_HEAD_DIMS
+    tensor_cores = on_tensor_cores(q.dtype, dh)
     if tensor_cores:
         for name, t in (("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
@@ -205,5 +217,5 @@ def card_plan(n_valid: int, B: int, Hkv: int, G: int, dh: int,
     dev = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return launch_plan(n_valid, B, Hkv, G, dh, sms=sms,
-                       tensor_cores=dtype == torch.bfloat16 and dh in TC_HEAD_DIMS,
+                       tensor_cores=on_tensor_cores(dtype, dh),
                        resident=_card_resident(dev, code, dh))

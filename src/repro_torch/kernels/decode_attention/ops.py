@@ -13,11 +13,12 @@ from repro_torch.kernels.decode_attention.decode_attention import flash_decode
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
-def decode_attention(q, k, v, n_valid: int) -> torch.Tensor:
-    """q: (B, Hkv, G, dh); k/v: (B, Hkv, T, dh), any strides; n_valid: host int."""
+def decode_attention(q, k, v, n_valid: int, *, scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hkv, G, dh); k/v: (B, Hkv, T, dh), any strides; n_valid: host int;
+    scale dh**-0.5 unless given."""
     if not q.is_cuda:
-        return decode_attention_ref(q, k, v, n_valid)
-    return flash_decode(q, k, v, n_valid)
+        return decode_attention_ref(q, k, v, n_valid, scale=scale)
+    return flash_decode(q, k, v, n_valid, scale=scale)
 
 
 def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -7,9 +7,10 @@ window leave live, and reads every tensor through its strides, so the
 model's (B, S, H, dh) projections are attended in place without transposes
 or padding; the ragged end past S is masked inside the kernel.
 
-bf16 at dh 64 and 128 takes the tensor-core kernel, which loads q, k and v
-with TMA: each is a 4-D map over (dh, heads, S, B) read in boxes of
-`BOX_D` dh columns by `BLOCK_Q` query rows or `BLOCK_K` keys. TMA needs
+bf16 at dh 64, 80 and 128 takes the tensor-core kernel, which loads q, k
+and v with TMA: each is a 4-D map over (dh, heads, S, B) read in boxes of
+`BOX_D` dh columns by `BLOCK_Q` query rows or `BLOCK_K` keys. dh 80 is read
+as two boxes, the second zero-filled past column 80. TMA needs
 16-byte aligned base addresses and outer strides. float32, and bf16 at
 dh 32, take the fp32-tile kernel, which reads elements through the strides.
 """
@@ -20,9 +21,14 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
-TC_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core kernel
+HEAD_DIMS = (32, 64, 80, 128)
+TC_HEAD_DIMS = (64, 80, 128)  # bf16 head dims of the tensor-core kernel
 BOX_D, BLOCK_Q, BLOCK_K = 64, 128, 64  # its TMA boxes: dh columns, query rows, keys
+
+
+def on_tensor_cores(dtype: torch.dtype, dh: int) -> bool:
+    """Whether calls of this dtype and head dim run the tensor-core kernel."""
+    return dtype == torch.bfloat16 and dh in TC_HEAD_DIMS
 
 
 def launch_args(q, k, v, out, *, scale: float | None, window: int | None) -> tuple:
@@ -49,7 +55,7 @@ def launch_args(q, k, v, out, *, scale: float | None, window: int | None) -> tup
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
     boxes = (0, 0, 0)
-    if q.dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
+    if on_tensor_cores(q.dtype, dh):
         for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
             if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
                 raise ValueError(f"flash_attention: {name} needs a 16-byte aligned base and outer "

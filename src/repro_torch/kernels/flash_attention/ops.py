@@ -13,12 +13,13 @@ from repro_torch.kernels.flash_attention.flash_attention import flash_attention_
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
-def flash_attention_bhsd(q, k, v, *, window: int | None = None) -> torch.Tensor:
-    """q: (B, Hq, S, dh); k/v: (B, Hkv, S, dh) -> (B, Hq, S, dh), causal."""
+def flash_attention_bhsd(q, k, v, *, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, S, dh); k/v: (B, Hkv, S, dh) -> (B, Hq, S, dh), causal; scale dh**-0.5."""
     if not q.is_cuda:
-        return attention_ref(q, k, v, window=window)
+        return attention_ref(q, k, v, window=window, scale=scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return flash_attention_fwd(q, k, v, out, window=window)
+    return flash_attention_fwd(q, k, v, out, window=window, scale=scale)
 
 
 def flash_attention(q, k, v, *, window: int | None = None) -> torch.Tensor:

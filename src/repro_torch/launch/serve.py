@@ -1,8 +1,11 @@
 """Serving launcher: batched generation with the slot-based engine.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --requests 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --device cuda
 
-The command line runs the reduced config, as the JAX launcher does. `run`
+`--arch` takes every ported config (`repro_torch.configs.ALIASES`: qwen3-14b,
+h2o-danube-1.8b, pixtral-12b, starcoder2-3b, minitron-8b, musicgen-large,
+or their module names). The command line runs the reduced config, as the JAX
+launcher does. `run`
 takes any config, so a caller can serve the full-width model with the same
 code (`chip_smoke.py` does).
 """
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ALIASES, ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Model
 from repro_torch.serve.engine import Request, ServeEngine
@@ -66,7 +69,7 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, requests:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--arch", default="qwen3-14b", choices=[*ALIASES, *ARCHS])
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

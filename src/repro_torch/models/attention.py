@@ -1,11 +1,11 @@
-"""GQA attention: prefill with a KV cache, and one-token decode over it.
+"""GQA attention: full-sequence, prefill with a KV cache, and one-token decode over it.
 
 Port of the inference half of `repro.models.attention`. With `kernels=True`
-(the model's default) the q/k norms run through the RMSNorm kernel, prefill
-through the flash-attention kernel and decode through the flash-decode
-kernel; on CPU tensors those wrappers run their plain versions. With
-`kernels=False` the plain PyTorch path below runs on any device; it is the
-oracle the kernels are held to on the card.
+(the model's default) the q/k norms run through the RMSNorm kernel, the
+full-sequence attention and prefill through the flash-attention kernel and
+decode through the flash-decode kernel; on CPU tensors those wrappers run
+their plain versions. With `kernels=False` the plain PyTorch path below runs
+on any device; it is the oracle the kernels are held to on the card.
 
 Caches keep JAX's layout, (B, W, Hkv, dh), so parity tests compare like with
 like; the kernels read them through strides. Unlike JAX, which returns new
@@ -57,6 +57,28 @@ def _dense_attention(q, k, v, q_pos, k_pos, window):
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
+def _causal_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, kernels: bool):
+    """Causal attention over the whole sequence: (out (B, S, D), k, v (B, S, Hkv, dh))."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos, kernels)
+    if kernels:
+        out = fa_ops.flash_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        out = _dense_attention(q, k, v, pos, pos, cfg.sliding_window)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype), k, v
+
+
+def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   kernels: bool = True) -> torch.Tensor:
+    """Full-sequence causal attention (`Model.forward`): x (B, S, D) -> (B, S, D).
+
+    Inference only: the flash kernel has no backward yet, so autograd does
+    not reach the parameters through the kernel path.
+    """
+    return _causal_attention(cfg, p, x, kernels)[0]
+
+
 # ----------------------------------------------------------------- KV caching
 def cache_len(cfg: ModelConfig, max_len: int) -> int:
     if cfg.sliding_window is not None:
@@ -81,13 +103,7 @@ def prefill_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, max_len: int,
     Returns (out (B, S, D), cache).
     """
     B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos, kernels)
-    if kernels:
-        out = fa_ops.flash_attention(q, k, v, window=cfg.sliding_window)
-    else:
-        out = _dense_attention(q, k, v, pos, pos, cfg.sliding_window)
-    out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype)
+    out, k, v = _causal_attention(cfg, p, x, kernels)
 
     W = cache_len(cfg, max_len)
     if cache is None:

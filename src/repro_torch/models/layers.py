@@ -10,19 +10,35 @@ import torch
 import torch.nn.functional as F
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # JAX's gelu(approximate=True)
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x).square()  # squared ReLU (Nemotron/minitron)
+
+
 def activation(name: str):
     if name == "silu":
         return F.silu
-    raise ValueError(f"activation {name!r} is not ported yet")
+    if name == "gelu":
+        return _gelu_tanh
+    if name == "relu2":
+        return _relu2
+    raise ValueError(f"unknown activation {name}")
 
 
 def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to the input dtype."""
-    if "bias" in p:
-        raise NotImplementedError("layernorm is not ported yet")
+    """RMSNorm / LayerNorm (when `p` has a bias) in fp32, cast back to the input dtype."""
     xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+    if "bias" in p:  # layernorm, with the population variance
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

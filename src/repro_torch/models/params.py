@@ -31,14 +31,28 @@ class PD:
     """Parameter definition: shape, initializer, dtype override."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | ones
+    init: str = "normal"  # normal | zeros | ones
     stddev: float = 0.02
     dtype: torch.dtype | None = None
 
 
+FAMILIES = ("dense", "vlm", "audio")  # the families of the dense decoder
+
+
+def _norm_defs(cfg: ModelConfig, *lead: int) -> dict:
+    """A norm's gains (and LayerNorm's bias), fp32, with optional leading dims."""
+    f32 = torch.float32
+    if cfg.norm == "rmsnorm":
+        return {"scale": PD((*lead, cfg.d_model), init="ones", dtype=f32)}
+    if cfg.norm == "layernorm":
+        return {"scale": PD((*lead, cfg.d_model), init="ones", dtype=f32),
+                "bias": PD((*lead, cfg.d_model), init="zeros", dtype=f32)}
+    raise ValueError(f"unknown norm {cfg.norm!r}")
+
+
 def param_defs(cfg: ModelConfig) -> dict:
     """The PD tree of the dense decoder (the keys of JAX's `Model.param_defs`)."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     D, L, F = cfg.d_model, cfg.num_layers, cfg.d_ff
     f32 = torch.float32
@@ -56,11 +70,11 @@ def param_defs(cfg: ModelConfig) -> dict:
         mlp["wg"] = PD((L, D, F))
     defs: dict[str, Any] = {
         "embed": {"tok": PD((cfg.vocab_size, D))},
-        "final_norm": {"scale": PD((D,), init="ones", dtype=f32)},
+        "final_norm": _norm_defs(cfg),
         "layers": {
-            "ln1": {"scale": PD((L, D), init="ones", dtype=f32)},
+            "ln1": _norm_defs(cfg, L),
             "attn": attn,
-            "ln2": {"scale": PD((L, D), init="ones", dtype=f32)},
+            "ln2": _norm_defs(cfg, L),
             "mlp": mlp,
         },
     }
@@ -102,6 +116,8 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
         dtype = pd.dtype or cfg.pdtype
         if pd.init == "ones":
             t = torch.ones(pd.shape, dtype=dtype, device=device)
+        elif pd.init == "zeros":
+            t = torch.zeros(pd.shape, dtype=dtype, device=device)
         else:
             g = torch.Generator(device=device)
             g.manual_seed(zlib.crc32(f"{seed}/{path}".encode()) & 0x7FFFFFFF)

@@ -1,9 +1,10 @@
 """Model assembly of the dense decoder: [norm -> GQA attn -> norm -> MLP] x L.
 
-Port of the dense family of `repro.models.transformer` for inference
-(`prefill`, `init_cache`, `decode_step`); `forward`, `loss`, MoE, hybrid and
-RWKV come in later slices. A Python loop over the layers replaces
-`lax.scan`, over views of the stacked `(L, ...)` parameters.
+Port of the dense, vlm and audio families of `repro.models.transformer` for
+inference (`forward`, `loss`, `prefill`, `init_cache`, `decode_step`); MoE,
+hybrid and RWKV come in later slices, and the backward with training. A
+Python loop over the layers replaces `lax.scan`, over views of the stacked
+`(L, ...)` parameters.
 
 The cache is a dict of JAX's structure, `{"layers": {"kv": {"k", "v"}},
 "pos"}`, with `k`/`v` stacked `(L, B, W, Hkv, dh)` and `pos` a host int. It
@@ -12,8 +13,10 @@ returns the same dict (JAX donates the cache buffers to the same effect).
 
 `Model(cfg, kernels=True)` runs the pre-norms, the fused residual-add norm,
 the qk-norms and both attentions through the port's CUDA kernels (their
-plain versions on CPU tensors). `kernels=False` runs plain PyTorch on any
-device: the oracle the kernel path is held to on the card.
+plain versions on CPU tensors). LayerNorm has no kernel: on layernorm
+configs the norms are plain PyTorch on either path. `kernels=False` runs
+plain PyTorch on any device: the oracle the kernel path is held to on the
+card.
 """
 
 from __future__ import annotations
@@ -25,21 +28,32 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
-from repro_torch.models.params import count_params, init_params, layer_params
+from repro_torch.models.params import FAMILIES, count_params, init_params, layer_params
+
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+# where the ROADMAP queues the families the port does not run yet
+NOT_PORTED = {"moe": "A2 (MoE)", "hybrid": "A3 (Mamba2 + hybrid)", "ssm": "A3/A4 (Mamba2, RWKV6)"}
+
+
+def zero_aux(device) -> dict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
 
 
 def _norm(p: dict, x: torch.Tensor, kernels: bool) -> torch.Tensor:
-    return rms_ops.rmsnorm(x, p["scale"]) if kernels else apply_norm(p, x)
+    """RMSNorm through its kernel on the kernel path; LayerNorm (a bias) is plain."""
+    return rms_ops.rmsnorm(x, p["scale"]) if kernels and "bias" not in p else apply_norm(p, x)
 
 
-def _apply_dense_layer(cfg, p, x, mode, cache, pos=None, max_len=0, kernels=True):
+def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
     """One layer. `cache` is the layer's {"k", "v"}, filled (prefill) or extended (decode)."""
     h = _norm(p["ln1"], x, kernels)
-    if mode == "prefill":
+    if mode == "forward":
+        a = attn.self_attention(cfg, p["attn"], h, kernels=kernels)
+    elif mode == "prefill":
         a, _ = attn.prefill_attention(cfg, p["attn"], h, max_len, cache=cache, kernels=kernels)
     else:
         a, _ = attn.decode_attention(cfg, p["attn"], h, cache, pos, kernels=kernels)
-    if kernels:
+    if kernels and "bias" not in p["ln2"]:  # RMSNorm: the fused residual-add kernel
         h, x = rms_ops.rmsnorm_residual(x, a, p["ln2"]["scale"])
     else:
         x = x + a
@@ -51,8 +65,10 @@ class Model:
     """Functional model wrapper: params are explicit dicts of tensors."""
 
     def __init__(self, cfg: ModelConfig, *, kernels: bool = True):
-        if cfg.family != "dense" or cfg.norm != "rmsnorm":
-            raise NotImplementedError(f"{cfg.name}: only the dense rmsnorm family is ported")
+        if cfg.family not in FAMILIES:
+            item = NOT_PORTED.get(cfg.family, "A")
+            raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                                      f"(ROADMAP {item})")
         self.cfg = cfg
         self.kernels = kernels
 
@@ -62,11 +78,55 @@ class Model:
     def param_count(self) -> int:
         return count_params(self.cfg)
 
+    def _inputs_to_hidden(self, params: dict, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.input_mode == "embeds" and "embeds" in batch:
+            return batch["embeds"].to(cfg.compute_dtype)
+        return embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         p = params.get("lm_head")
         if p is None:  # tied
             p = {"w": params["embed"]["tok"].T}
         return lm_logits(p, x, torch.float32)
+
+    def forward(self, params: dict, batch: dict):
+        """Full-sequence forward: (final hidden (B, S, D), aux).
+
+        `aux` holds JAX's MoE metrics, all zero for these families. Inference
+        only: no remat, and the kernels have no backward yet.
+        """
+        x = self._inputs_to_hidden(params, batch)
+        for i in range(self.cfg.num_layers):
+            x = _apply_dense_layer(self.cfg, layer_params(params, i), x, "forward",
+                                   kernels=self.kernels)
+        return _norm(params["final_norm"], x, self.kernels), zero_aux(x.device)
+
+    def loss(self, params: dict, batch: dict):
+        """Next-token CE over `loss_chunk`-token chunks of fp32 logits: (loss, metrics).
+
+        `batch["labels"]` (B, S) holds each position's target, -1 where it is
+        ignored; S must be a multiple of the chunk. A chunk's (B, chunk, V)
+        logits are the only ones alive at a time.
+        """
+        x, aux = self.forward(params, batch)
+        labels = batch["labels"]
+        B, S, _ = x.shape
+        chunk = min(self.cfg.loss_chunk, S)
+        if S % chunk:
+            raise ValueError(f"sequence {S} is not a multiple of loss_chunk {chunk}")
+        tot = n = hits = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, S, chunk):
+            logits = self._head(params, x[:, c:c + chunk])  # (B, chunk, V) fp32
+            y = labels[:, c:c + chunk].long()
+            valid = (y >= 0).float()
+            gold = logits.gather(-1, y.clamp_min(0)[..., None])[..., 0]
+            tot = tot + ((torch.logsumexp(logits, -1) - gold) * valid).sum()
+            n = n + valid.sum()
+            hits = hits + ((logits.argmax(-1) == y).float() * valid).sum()
+        n = n.clamp_min(1.0)
+        ce = tot / n
+        return ce, {"loss": ce, "ce": ce, "accuracy": hits / n, **aux}
 
     def init_cache(self, batch_size: int, max_len: int, device) -> dict:
         """Zeroed cache for decode-from-scratch."""
@@ -79,8 +139,7 @@ class Model:
     def prefill(self, params: dict, batch: dict, max_len: int):
         """Returns (last-token logits (B, V) fp32, decode-ready cache)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+        x = self._inputs_to_hidden(params, batch)
         B, S, _ = x.shape
         cache = self.init_cache(B, max_len, x.device)
         kv = cache["layers"]["kv"]

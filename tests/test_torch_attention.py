@@ -68,6 +68,18 @@ def test_prefill_then_decode_matches_jax(window, kernels):
         _close(cache_j["k"], cache_t["k"])
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("kernels", [True, False])
+def test_self_attention_matches_jax(window, kernels):
+    """`Model.forward`'s attention: JAX's flash-VJP chunked path against the
+    port's kernel path (the plain flash version on the CPU) and plain path."""
+    jcfg, cfg, pj, pt = _setup(window)
+    x = np.random.default_rng(6).standard_normal((2, 48, cfg.d_model), dtype=np.float32)
+    out_j = jax.jit(lambda p, h: jattn.self_attention(jcfg, p, h))(pj, jnp.asarray(x))
+    _close(out_j, tattn.self_attention(cfg, pt, torch.from_numpy(x), kernels=kernels))
+
+
 @pytest.mark.parametrize("window", [None, 16])
 def test_decode_from_empty_cache_ring_validity(window):
     """Early positions of a ring cache (pos < W): n_valid = pos + 1 equals JAX's slot rule."""

@@ -69,7 +69,8 @@ def test_rmsnorm_kernels(dev, dtype, T, D, eps):
 @pytest.mark.parametrize(
     "B,Hq,Hkv,S,dh,win",
     [(2, 4, 4, 256, 64, None), (1, 8, 2, 256, 128, None), (2, 4, 2, 384, 64, 128),
-     (1, 2, 1, 300, 32, None), (1, 40, 8, 1000, 128, None)],
+     (1, 2, 1, 300, 32, None), (1, 40, 8, 1000, 128, None), (1, 32, 8, 300, 80, None),
+     (2, 4, 2, 384, 80, 128)],
 )
 def test_flash_attention_kernel(dev, dtype, B, Hq, Hkv, S, dh, win):
     rng = np.random.default_rng(0)
@@ -101,11 +102,13 @@ def test_flash_attention_model_layout(dev, dtype):
 
 
 @pytest.mark.parametrize("B,S,Hkv,G,dh,win", [(4, 1100, 8, 5, 128, None), (1, 2048, 8, 5, 128, None),
-                                              (2, 1000, 2, 4, 64, 128)])
+                                              (2, 1000, 2, 4, 64, 128), (1, 4608, 8, 4, 80, 4096),
+                                              (2, 1000, 2, 12, 128, None), (2, 1000, 32, 1, 64, None)])
 def test_flash_attention_tensor_cores_serving_shapes(dev, B, S, Hkv, G, dh, win):
     """The bf16 tensor-core kernel at the serve path's shapes (qwen3-14b: 40 query
-    heads over 8 kv heads, dh 128, S not a multiple of the tiles) and at dh 64
-    with a window."""
+    heads over 8 kv heads, dh 128, S not a multiple of the tiles), at dh 64
+    with a window, at h2o-danube's (dh 80 in padded tiles, a prompt past its
+    4096-token window), starcoder2's G 12 and musicgen's G 1."""
     _model_layout_case(dev, torch.bfloat16, B, S, Hkv, G, dh, window=win, seed=4)
 
 
@@ -137,7 +140,9 @@ def test_rmsnorm_scalar_path_on_misaligned_rows(dev):
      (1, 2, 4, 600, 32, 77), (4, 8, 5, 2048, 128, 1), (4, 8, 5, 2048, 128, 1000),
      (4, 8, 5, 2048, 128, 2048), (4, 8, 5, 2048, 128, 1100), (1, 2, 5, 600, 64, 63),
      (1, 2, 5, 600, 64, 64), (1, 2, 5, 600, 64, 65), (2, 1, 16, 2048, 128, 1100),
-     (1, 1, 1, 2048, 64, 2047), (2, 4, 6, 600, 128, 300)],
+     (1, 1, 1, 2048, 64, 2047), (2, 4, 6, 600, 128, 300), (4, 8, 4, 600, 80, 1),
+     (4, 8, 4, 600, 80, 600), (4, 8, 4, 4096, 80, 4096), (1, 2, 5, 600, 80, 65),
+     (4, 2, 12, 2048, 128, 1100), (4, 32, 1, 2048, 64, 1100)],
 )
 def test_decode_attention_kernel(dev, dtype, B, Hkv, G, T, dh, nv):
     rng = np.random.default_rng(1)
@@ -160,7 +165,8 @@ def _decode_case(dev, dtype, B, Hkv, G, T, dh, seed=12):
 
 
 @pytest.mark.parametrize("dtype,dh,nv", [(torch.bfloat16, 128, 1100), (torch.bfloat16, 64, 65),
-                                         (torch.bfloat16, 32, 77), (torch.float32, 128, 1100)])
+                                         (torch.bfloat16, 32, 77), (torch.float32, 128, 1100),
+                                         (torch.bfloat16, 80, 1100), (torch.float32, 80, 77)])
 def test_decode_attention_nan_tail_is_never_read(dev, dtype, dh, nv):
     """Slots at or past n_valid may hold anything, NaN included: the result is
     bitwise the one with a zero tail (the TMA maps end at n_valid)."""
@@ -189,22 +195,26 @@ def test_decode_attention_cuda_graph_replay(dev, dtype):
     assert torch.equal(out, eager)
 
 
-def test_decode_attention_clusters_fit_one_wave(dev):
-    """The serving plan's clusters (8 CTAs of ~97 KB) are resident at once on an H100."""
+@pytest.mark.parametrize("nv,G,dh", [(1100, 5, 128), (4096, 4, 80)])
+def test_decode_attention_clusters_fit_one_wave(dev, nv, G, dh):
+    """The serving plans' clusters (qwen3-14b's, and h2o-danube's on a full
+    4096-slot ring at dh 80) are resident at once on an H100."""
     from repro_torch.kernels.decode_attention import decode_attention as dec
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = dec.launch_plan(1100, 4, 8, 5, 128, tensor_cores=True, sms=sms)
-    assert dec.max_active_clusters(plan, 128) >= 1
+    plan = dec.launch_plan(nv, 4, 8, G, dh, tensor_cores=True, sms=sms)
+    assert dec.max_active_clusters(plan, dh) >= 1
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 256, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         rms_ops.rmsnorm(x, torch.ones(256, device=dev))
-    q = torch.zeros(1, 2, 4, 96, device=dev)
+    q = torch.zeros(1, 2, 4, 96, device=dev)  # head dims 48 and 96: no config, no instance
     with pytest.raises(ValueError):
         flash_decode(q, torch.zeros(1, 2, 8, 96, device=dev), torch.zeros(1, 2, 8, 96, device=dev), 3)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention_bhsd(q.bfloat16(), q[:, :1].bfloat16(), q[:, :1].bfloat16())
     with pytest.raises(TypeError):
         flash_decode(torch.zeros(1, 2, 4, 64, device=dev), torch.zeros(1, 2, 8, 64, device=dev),
                      torch.zeros(1, 2, 8, 64, device=dev), torch.tensor(3, device=dev))

@@ -64,6 +64,8 @@ FA_CASES = [
     (1, 8, 2, 256, 128, None),  # GQA 4:1
     (2, 4, 2, 384, 64, 128),  # GQA + sliding window
     (1, 2, 1, 300, 32, None),  # S not a block multiple
+    (1, 32, 8, 300, 80, None),  # h2o-danube's heads at dh 80
+    (2, 4, 2, 384, 80, 128),  # dh 80 + sliding window
 ]
 
 
@@ -84,6 +86,8 @@ DEC_CASES = [
     (2, 8, 1, 512, 64, 1),  # one valid slot
     (1, 2, 4, 600, 32, 77),  # T not a block multiple
     (1, 2, 5, 600, 32, 600),  # G = 5, as qwen3-14b
+    (4, 8, 4, 600, 80, 1),  # h2o-danube's heads at dh 80
+    (4, 8, 4, 600, 80, 600),
 ]
 
 
@@ -132,6 +136,30 @@ def test_decode_attention_vs_pallas_interpret():
     assert _err(out, dec_ops.decode_attention(qt, kt, vt, 77)) < 2e-5
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("B,Hq,Hkv,S,dh,win", [(1, 32, 8, 300, 80, None), (2, 4, 2, 384, 80, 128)])
+def test_flash_attention_dh80_vs_pallas_interpret(B, Hq, Hkv, S, dh, win):
+    """The TPU kernel takes any dh (its blocks span the head): at h2o-danube's
+    80 it agrees with the port's plain version, which CPU tensors take."""
+    rng = np.random.default_rng(12)
+    qj, qt = _pair(rng.standard_normal((B, Hq, S, dh), dtype=np.float32), "float32")
+    kj, kt = _pair(rng.standard_normal((B, Hkv, S, dh), dtype=np.float32), "float32")
+    vj, vt = _pair(rng.standard_normal((B, Hkv, S, dh), dtype=np.float32), "float32")
+    out = jax_fa_ops.flash_attention_bhsd(qj, kj, vj, window=win)
+    assert _err(out, fa_ops.flash_attention_bhsd(qt, kt, vt, window=win)) < 2e-5
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("nv", [1, 600])
+def test_decode_attention_dh80_vs_pallas_interpret(nv):
+    rng = np.random.default_rng(13)
+    qj, qt = _pair(rng.standard_normal((4, 8, 4, 80), dtype=np.float32), "float32")
+    kj, kt = _pair(rng.standard_normal((4, 8, 600, 80), dtype=np.float32), "float32")
+    vj, vt = _pair(rng.standard_normal((4, 8, 600, 80), dtype=np.float32), "float32")
+    out = jax_dec_ops.decode_attention(qj, kj, vj, jnp.int32(nv))
+    assert _err(out, dec_ops.decode_attention(qt, kt, vt, nv)) < 2e-5
+
+
 # ------------------------------------- the kernels' addressing, replayed on the CPU
 def _gather(t: torch.Tensor, shape, strides) -> torch.Tensor:
     """What a kernel reads from `t`'s storage at base + sum(i * stride), unit stride last."""
@@ -175,11 +203,13 @@ def _replay_flash(q, k, v, out, args):
         _gather(out, (B, Hq, S, dh), st[9:12]).copy_(torch.einsum("bhqk,bhkd->bhqd", p, vh.float()))
         return
 
-    def tile(t, heads, strides, rows, pos):  # (B, heads, rows, dh) from dh / box_d boxes
+    def tile(t, heads, strides, rows, pos):  # (B, heads, rows, dh) from ceil(dh / box_d) boxes
         dims, byte_strides = (dh, heads, S, B), [x * t.element_size() for x in (strides[1], strides[2], strides[0])]
         boxes = [_tma_box(t, dims, byte_strides, (box_d, heads, rows, B), (c, 0, pos, 0))
                  for c in range(0, dh, box_d)]
-        return torch.cat(boxes, -1).transpose(1, 2)
+        whole = torch.cat(boxes, -1).transpose(1, 2)
+        assert not whole[..., dh:].any()  # dh 80: the padded columns arrive as zeros
+        return whole[..., :dh]
 
     n_qb, n_kb = -(-S // box_q), -(-S // box_k)
     q_all = torch.cat([tile(q, Hq, st[0:3], box_q, qb * box_q) for qb in range(n_qb)], 2)
@@ -273,6 +303,26 @@ def test_flash_attention_tma_boxes_model_layout(S, window, G):
     assert (ref.float() - out.float()).abs().max().item() < TOL["bfloat16"]
 
 
+@pytest.mark.parametrize("S,window", [(300, None), (4608 // 16, 96)])
+def test_flash_attention_tma_boxes_dh80(S, window):
+    """bf16 at dh 80 takes the TMA path in tiles of two 64-column boxes: the
+    second box reads columns 64-79 and zero-fills the rest, and the tile walk
+    over those padded tiles rebuilds the attention."""
+    rng = np.random.default_rng(14)
+    B, Hkv, G, dh = 1, 2, 4, 80
+    q = torch.from_numpy(rng.standard_normal((B, S, Hkv, G, dh), dtype=np.float32)).bfloat16()
+    k = torch.from_numpy(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).bfloat16()
+    out = torch.zeros_like(q)
+    views = (q.view(B, S, Hkv * G, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             out.view(B, S, Hkv * G, dh).transpose(1, 2))
+    args = fa_kernel.launch_args(*views, scale=None, window=window)
+    assert args[17:20] == (64, 128, 64) and args[-1] == 80**-0.5
+    _replay_flash(*views, args)
+    ref = fa_ops.flash_attention(q, k, v, window=window)
+    assert (ref.float() - out.float()).abs().max().item() < TOL["bfloat16"]
+
+
 def test_flash_attention_launch_args_reject_misaligned():
     """TMA needs 16-byte aligned bases and outer strides; the fp32-tile path does not."""
     z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
@@ -288,6 +338,15 @@ def test_flash_attention_launch_args_reject_misaligned():
     f32 = [t.float() for t in ok]
     f32[1] = z(1, 1, 8, 65, dt=torch.float32)[..., :64]  # 260-byte rows: fine without TMA
     assert fa_kernel.launch_args(*f32, scale=None, window=None)[17:20] == (0, 0, 0)
+
+
+@pytest.mark.parametrize("kernel", [fa_kernel, dec_kernel], ids=["flash", "decode"])
+def test_on_tensor_cores_routes_bf16_head_dims(kernel):
+    """bf16 at dh 64, 80 and 128 takes the tensor-core kernel; dh 32 and fp32 do not."""
+    for dh in (64, 80, 128):
+        assert kernel.on_tensor_cores(torch.bfloat16, dh)
+        assert not kernel.on_tensor_cores(torch.float32, dh)
+    assert not kernel.on_tensor_cores(torch.bfloat16, 32)
 
 
 @pytest.mark.parametrize("d", [5120, 1024, 512, 256, 128, 100])
@@ -344,11 +403,13 @@ def _replay_decode(q, k, v, args):
     assert extent == nv and (box_d, box_slots) in ((0, 0), (dec_kernel.BOX_D, dec_kernel.TILE))
     padded = (B, Hkv, n_tiles * dec_kernel.TILE, dh)
     if box_d:
-        def tiles_of(t, st):  # (B, Hkv, n_tiles * TILE, dh) from dh / box_d boxes a tile
+        def tiles_of(t, st):  # (B, Hkv, n_tiles * TILE, dh) from ceil(dh / box_d) boxes a tile
             dims, bs = (dh, Hkv, extent, B), [x * t.element_size() for x in (st[1], st[2], st[0])]
-            return torch.cat([torch.cat([_tma_box(t, dims, bs, (box_d, Hkv, box_slots, B), (c, 0, j * box_slots, 0))
-                                         for c in range(0, dh, box_d)], -1)
-                              for j in range(n_tiles)], 1).transpose(1, 2)
+            whole = torch.cat([torch.cat([_tma_box(t, dims, bs, (box_d, Hkv, box_slots, B), (c, 0, j * box_slots, 0))
+                                          for c in range(0, dh, box_d)], -1)
+                               for j in range(n_tiles)], 1).transpose(1, 2)
+            assert whole.shape[-1] == dec_kernel.tile_cols(dh) and (whole[..., dh:] == 0).all()
+            return whole[..., :dh]  # dh 80: the padded columns arrive as zeros
         K, V = tiles_of(k, kst), tiles_of(v, vst)
         for whole, t, st in ((K, k, kst), (V, v, vst)):
             assert torch.equal(whole[:, :, :nv], _gather(t, (B, Hkv, nv, dh), st))
@@ -421,7 +482,7 @@ def _check_plan(plan, nv, B, Hkv, G, dh, tensor_cores):
     recv = dec_kernel.recv_floats(dh)
     assert plan.n_split * G * dec_kernel.slice_cols(dh, plan.n_split) + 2 * 8 * 16 <= recv
     if tensor_cores:
-        stage = 2 * dec_kernel.TILE * dh * 2
+        stage = 2 * dec_kernel.TILE * dec_kernel.tile_cols(dh) * 2  # dh 80: stages of 128 columns
         assert plan.box == (dec_kernel.BOX_D, dec_kernel.TILE) and 1 <= plan.stages <= max(counts)
         assert plan.stages * stage <= dec_kernel.RING_BYTES
         assert plan.stages == min(max(counts), dec_kernel.RING_BYTES // stage)
@@ -460,7 +521,7 @@ def test_decode_launch_plan_counts_waves():
 
 
 @pytest.mark.parametrize("nv", [1, 63, 64, 65, 300, 1100, 2048])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 80, 128])
 def test_decode_launch_plan_replay(nv, dh):
     """The plan over G 1..16 and B * Hkv 2..32, on both kernels."""
     for G in (1, 2, 5, 6, 16):
@@ -468,6 +529,35 @@ def test_decode_launch_plan_replay(nv, dh):
             for tc in (True, False):
                 plan = dec_kernel.launch_plan(nv, B, Hkv, G, dh, tensor_cores=tc, sms=132)
                 _check_plan(plan, nv, B, Hkv, G, dh, tc)
+
+
+@pytest.mark.parametrize("G", [1, 4, 5, 12, 16])
+def test_decode_launch_plan_dh80(G):
+    """h2o-danube's dh 80 over every n_valid of its 4096-slot ring: stages of
+    128 padded columns (32 KB), the ring within its budget and the CTA under
+    the 232,448 B a block may use, on both kernels and at 4 x 8 heads."""
+    for nv in range(1, 4097):
+        for tc in (True, False):
+            plan = dec_kernel.launch_plan(nv, 4, 8, G, 80, tensor_cores=tc, sms=132)
+            _check_plan(plan, nv, 4, 8, G, 80, tc)
+    assert dec_kernel.cta_smem(3, G, 80, True)[1] == 3 * 32768 + 4 * dec_kernel.recv_floats(80) + 24 + 1024
+
+
+@pytest.mark.parametrize("nv", [1, 65, 1100, 4096])
+@pytest.mark.parametrize("G", [1, 4, 16])
+def test_decode_attention_dh80_combine(nv, G):
+    """At dh 80 (fp32-tile kernel) the CTAs' partials combine, each rank writing
+    its slice of the 80 columns, to the plain version within 2e-5."""
+    rng = np.random.default_rng(15)
+    B, T, Hkv, dh = 1, 4096, 2, 80
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, dh), dtype=np.float32))
+    kc = torch.from_numpy(rng.standard_normal((B, T, Hkv, dh), dtype=np.float32))
+    vc = torch.from_numpy(rng.standard_normal((B, T, Hkv, dh), dtype=np.float32))
+    args = dec_kernel.launch_args(q, kc.transpose(1, 2), vc.transpose(1, 2), nv, scale=None)
+    assert args[4] == 80 and args[-1] == 80**-0.5 and args[14] == 0
+    out = _replay_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), args)
+    ref = dec_ops.decode_attention_cache(q.view(B, 1, Hkv, G, dh), kc, vc, nv)[:, 0]
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5)
 
 
 def test_decode_launch_plan_serving_shape():
@@ -480,9 +570,10 @@ def test_decode_launch_plan_serving_shape():
 
 
 @pytest.mark.parametrize("nv,T,G,dh", [(1, 600, 5, 64), (65, 600, 2, 128), (600, 600, 6, 64),
-                                       (1100, 2048, 5, 128), (300, 2048, 16, 128)])
+                                       (1100, 2048, 5, 128), (300, 2048, 16, 128), (1, 600, 16, 80),
+                                       (65, 600, 1, 80), (4096, 4096, 4, 80)])
 def test_decode_tma_boxes_model_layout(nv, T, G, dh):
-    """bf16 at dh 64 and 128 takes the TMA path: the boxes over the model-layout
+    """bf16 at dh 64, 80 and 128 takes the TMA path: the boxes over the model-layout
     cache rebuild its valid rows with zeros past n_valid (a NaN tail is never
     read), and the cluster's combine rebuilds the attention."""
     rng = np.random.default_rng(11)

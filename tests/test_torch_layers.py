@@ -81,3 +81,40 @@ def test_apply_mlp(rng, gated):
     for shape in ((2, 5, D), (7, D)):
         xj, xt = _pair(rng.standard_normal(shape, dtype=np.float32))
         _close(jax_apply_mlp(pj, xj, "silu"), apply_mlp(pt, xt, "silu"))
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu2"])
+def test_activations(rng, name):
+    # gelu is the tanh approximation in both (JAX's approximate=True)
+    xj, xt = _pair(rng.standard_normal((4, 7, 64), dtype=np.float32) * 3)
+    _close(jl.activation(name)(xj), tl.activation(name)(xt))
+
+
+def test_layernorm(rng):
+    """LayerNorm (a `bias` in the norm's params): population variance, eps 1e-5."""
+    xj, xt = _pair(rng.standard_normal((3, 7, 128), dtype=np.float32) * 2 + 0.5)
+    sj, st = _pair(rng.standard_normal((128,), dtype=np.float32))
+    bj, bt = _pair(rng.standard_normal((128,), dtype=np.float32))
+    _close(jl.apply_norm({"scale": sj, "bias": bj}, xj), tl.apply_norm({"scale": st, "bias": bt}, xt))
+    hj, ht = _pair(rng.standard_normal((5, 64), dtype=np.float32) * 1e-3)  # where eps shows
+    s1j, s1t = _pair(np.ones(64, np.float32))
+    z = np.zeros(64, np.float32)
+    _close(jl.apply_norm({"scale": s1j, "bias": jnp.asarray(z)}, hj),
+           tl.apply_norm({"scale": s1t, "bias": torch.from_numpy(z)}, ht))
+    # bf16 in, bf16 out: the norm runs in fp32 and casts back, in both (one
+    # bf16 step apart at most, where the fp32 sums differ in their last bit)
+    yj = jl.apply_norm({"scale": sj, "bias": bj}, xj.astype(jnp.bfloat16))
+    yt = tl.apply_norm({"scale": st, "bias": bt}, xt.bfloat16())
+    assert yt.dtype == torch.bfloat16
+    np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32), rtol=2**-8, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu2"])
+def test_plain_mlp(rng, act):
+    """The non-gated MLP of starcoder2 (gelu), musicgen (gelu) and minitron (relu2)."""
+    D, F = 64, 96
+    p_np = {k: rng.standard_normal(s, dtype=np.float32) * 0.1 for k, s in (("wi", (D, F)), ("wo", (F, D)))}
+    pj = {k: jnp.asarray(v) for k, v in p_np.items()}
+    pt = {k: torch.from_numpy(v) for k, v in p_np.items()}
+    xj, xt = _pair(rng.standard_normal((2, 5, D), dtype=np.float32))
+    _close(jax_apply_mlp(pj, xj, act), apply_mlp(pt, xt, act))

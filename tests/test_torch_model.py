@@ -5,6 +5,8 @@ JAX's own prefill + decode against its forward (in float32 the two packages
 agree to about 1e-5); greedy tokens identical.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -69,3 +71,10 @@ def test_port_prefill_decode_matches_jax_forward(setup):
     ours, _ = _port_logits(Model(cfg), tparams, tokens)
     err = np.abs(ours - np.moveaxis(full[:, S0 - 1:S - 1], 1, 0)).max()
     assert err < 2e-3, err
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
+def test_model_refuses_unported_families(family):
+    cfg = dataclasses.replace(get_config("qwen3_14b").reduced(), family=family)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        Model(cfg)

@@ -8,18 +8,36 @@ import torch
 
 import jax
 
+from repro.configs import ALIASES as JAX_ALIASES
 from repro.configs import get_config as jax_get_config
 from repro.models.transformer import Model as JaxModel
-from repro_torch.configs import get_config
+from repro_torch.configs import ALIASES, ARCHS, get_config
 from repro_torch.models import params as tparams
 from repro_torch.models.transformer import Model
 
 CPU = torch.device("cpu")
+# each dense-family config, with JAX's Model.param_count() at full size
+PARAM_COUNTS = {
+    "qwen3_14b": 14_768_307_200,
+    "starcoder2_3b": 3_180_705_792,
+    "h2o_danube_1p8b": 1_831_201_280,
+    "minitron_8b": 7_734_829_056,
+    "musicgen_large": 2_424_705_024,
+    "pixtral_12b": 12_247_782_400,
+}
 
 
+def test_registry_holds_the_dense_family():
+    assert sorted(ARCHS) == sorted(PARAM_COUNTS)
+    assert ALIASES == {k: v for k, v in JAX_ALIASES.items() if v in ARCHS}
+    with pytest.raises(ValueError, match="not ported"):
+        get_config("deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
-def test_config_fields_match_jax(reduced):
-    ours, theirs = get_config("qwen3-14b"), jax_get_config("qwen3-14b")
+def test_config_fields_match_jax(reduced, arch):
+    ours, theirs = get_config(arch), jax_get_config(arch)
     if reduced:
         ours, theirs = ours.reduced(), theirs.reduced()
     for f in dataclasses.fields(ours):
@@ -28,10 +46,11 @@ def test_config_fields_match_jax(reduced):
     assert str(ours.compute_dtype).removeprefix("torch.") == str(theirs.compute_dtype)
 
 
-def test_param_count_matches_jax_at_full_width():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_count_matches_jax_at_full_width(arch):
     # counted from the shapes alone: nothing is allocated
-    assert Model(get_config("qwen3_14b")).param_count() == 14_768_307_200
-    assert JaxModel(jax_get_config("qwen3_14b")).param_count() == 14_768_307_200
+    assert Model(get_config(arch)).param_count() == PARAM_COUNTS[arch]
+    assert JaxModel(jax_get_config(arch)).param_count() == PARAM_COUNTS[arch]
 
 
 def _leaves(tree, prefix=""):
@@ -43,10 +62,11 @@ def _leaves(tree, prefix=""):
             yield path, v
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_from_jax_round_trips_bit_equal(dtype):
-    jcfg = jax_get_config("qwen3_14b").reduced(dtype=dtype, param_dtype=dtype)
-    cfg = get_config("qwen3_14b").reduced(dtype=dtype, param_dtype=dtype)
+def test_from_jax_round_trips_bit_equal(dtype, arch):
+    jcfg = jax_get_config(arch).reduced(dtype=dtype, param_dtype=dtype)
+    cfg = get_config(arch).reduced(dtype=dtype, param_dtype=dtype)
     jparams = jax.tree.map(np.asarray, JaxModel(jcfg).init(jax.random.PRNGKey(0)))
     ours = dict(_leaves(tparams.from_jax(jparams, cfg, CPU)))
     theirs = dict(_leaves(jparams))
@@ -63,13 +83,16 @@ def test_from_jax_round_trips_bit_equal(dtype):
             np.testing.assert_array_equal(t.numpy(), a, path)
 
 
-def test_own_init_is_seeded_per_leaf():
-    cfg = get_config("qwen3_14b").reduced()
+@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b"])
+def test_own_init_is_seeded_per_leaf(arch):
+    cfg = get_config(arch).reduced()
     a, b = tparams.init_params(cfg, 0, CPU), tparams.init_params(cfg, 0, CPU)
     c = tparams.init_params(cfg, 1, CPU)
     for (path, x), (_, y), (_, z) in zip(_leaves(a), _leaves(b), _leaves(c)):
         assert torch.equal(x, y), path
-        if not path.endswith("scale") and not path.endswith("_norm"):
+        if path.endswith("bias"):  # LayerNorm's bias starts at zero, as JAX's
+            assert not x.any(), path
+        elif not path.endswith("scale") and not path.endswith("_norm"):
             assert not torch.equal(x, z), path
             assert abs(x.float().std().item() - 0.02) < 0.005, path
     # leaves of one shape draw from their own generators

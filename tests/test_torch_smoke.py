@@ -28,14 +28,16 @@ def _host_ms(fn, iters=2, warmup=1, graph=False):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def _tiny():
-    return chip_smoke.get_config("qwen3_14b").reduced(dtype="bfloat16", param_dtype="bfloat16")
+def _tiny(arch="qwen3_14b"):
+    return chip_smoke.get_config(arch).reduced(dtype="bfloat16", param_dtype="bfloat16")
 
 
 def test_phase_kernels_rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, "time_ms", _host_ms)
     rec = chip_smoke.phase_kernels(CPU, rows=32, d=256, heads=4, B=1, Hq=4, Hkv=2, dh=32, S=80,
-                                   fa_lens=(70, 80), T=96, nvs=(1, 50, 96), nv=40, sweeps=False)
+                                   fa_lens=(70, 80), T=96, nvs=(1, 50, 96), nv=40,
+                                   danube_fa=(1, 4, 2, 100, 80, 64), danube_dec=(1, 2, 2, 128, 80, 128),
+                                   sweeps=False)
     assert set(rec) == set(chip_smoke.KERNELS)
     for r in rec.values():
         assert r["bound_by"] in ("bytes", "operations") and r["bound_ms"] > 0
@@ -44,18 +46,65 @@ def test_phase_kernels_rehearsal(monkeypatch):
     (qk,) = rec["rmsnorm"]["extra"]  # the qk-norm's rows, timed beside F.rms_norm
     assert qk["shape"].startswith("x (128,32)") and qk["library_ms"] is not None
     assert f"cold L2 ({chip_smoke.ROTATION} K/V pairs rotated" in rec["decode_attention"]["shape"]
+    # h2o-danube's shapes (dh 80, a window) beside the main ones, with every key of a row
+    (fa80,) = rec["flash_attention"]["extra"]
+    (dec80,) = rec["decode_attention"]["extra"]
+    assert fa80["shape"] == "q (1,4,100,80) kv heads 2 bf16 causal window 64"
+    assert dec80["shape"].startswith("q (1,2,2,80) cache (1,128,2,80) n_valid 128")
+    for t in (fa80, dec80):
+        assert {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"} <= t.keys()
+    # the flash bound counts the live pairs of the window: 64 * 65 / 2 + 36 * 64
+    assert fa80["bound_ms"] == chip_smoke.bound((2 * 4 + 2 * 2) * 100 * 80 * 2, 4 * 80 * (2080 + 2304) * 4,
+                                                torch.bfloat16)[0]
 
 
-def test_phase_parity_rehearsal():
-    out = chip_smoke.phase_parity(CPU, _tiny(), batch=2, prompt=20, steps=3)
+def test_live_pairs():
+    assert chip_smoke.live_pairs(4608, 4096) * 128 == 1_342_439_424  # h2o-danube's prefill
+    assert chip_smoke.live_pairs(10, None) == chip_smoke.live_pairs(10, 10) == 55
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b", "h2o_danube_1p8b"])
+def test_phase_parity_rehearsal(arch):
+    """h2o-danube takes the phase's own prompt, past its window (16 when reduced)."""
+    cfg = _tiny(arch)
+    out = chip_smoke.phase_parity(CPU, cfg, batch=2, prompt=None if cfg.sliding_window else 20,
+                                  steps=3)
     assert 0 <= out["max_abs_err"] <= out["tolerance"]
+    assert 0 <= out["forward_err"] < chip_smoke.FORWARD_TOL
 
 
-def test_phase_serve_rehearsal_fails_without_launches():
-    cfg = dataclasses.replace(_tiny(), num_layers=1)
+def test_relative_bar_rejects_the_padded_width_scale():
+    """At dh 80 the tensor-core tiles are 128 wide; attention scaled by 128 ** -0.5
+    passes the absolute bf16 bar at a full ring but not the relative one."""
+    assert chip_smoke._padded(80) == 128 and chip_smoke._padded(64) == 64
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g).to(torch.bfloat16)
+               for s in ((1, 2, 4, 80), (1, 2, 4096, 80), (1, 2, 4096, 80)))
+    ref = chip_smoke.decode_attention_ref(q, k, v, 4096)
+    right = chip_smoke.decode_attention_ref(q.float(), k.float(), v.float(), 4096)
+    wrong = chip_smoke.decode_attention_ref(q, k, v, 4096, scale=128 ** -0.5)
+    assert chip_smoke._rel(right, ref) < chip_smoke.REL_TOL < chip_smoke._rel(wrong, ref)
+    assert chip_smoke._err(right, ref) < chip_smoke.TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "musicgen_large"])
+def test_phase_serve_rehearsal_fails_without_launches(arch):
+    cfg = dataclasses.replace(_tiny(arch), num_layers=1)
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.phase_serve(CPU, cfg, requests=3, slots=2, prompt_len=(9, 14), max_new=3,
                                max_len=32)
+
+
+def test_serve_traffic_and_used_kernels():
+    """Phase 5 serves every config of the registry; h2o-danube's prompts pass its
+    window; LayerNorm configs use the attention kernels alone."""
+    assert {"qwen3_14b", *chip_smoke.SERVE_TRAFFIC} == set(chip_smoke.ARCHS)
+    danube = chip_smoke.get_config("h2o_danube_1p8b")
+    traffic = chip_smoke.SERVE_TRAFFIC["h2o_danube_1p8b"]
+    assert traffic["prompt_len"][0] > danube.sliding_window and traffic["max_len"] >= 4600 + 32
+    assert chip_smoke.used_kernels(danube) == list(chip_smoke.KERNELS)
+    assert chip_smoke.used_kernels(chip_smoke.get_config("minitron_8b")) == ["flash_attention",
+                                                                             "decode_attention"]
 
 
 def test_phase_trace_rehearsal(monkeypatch):
