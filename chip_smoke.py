@@ -16,21 +16,24 @@ Phases, each of which fails the run with a non-zero exit:
                h2o-danube's shapes (dh 80 on the tensor cores, a 4096 window),
                where the kernel launched with the padded width's scale must
                fail its check (ATTN_BAR_NOTE);
-  4. parity  - each of the six dense configs at full width and 2 layers in
-               bf16: prefill and 8 decode steps through the kernels against
-               the plain path, h2o-danube's prompt past its window; and the
-               plain path's float32 `forward` against its own prefill and
-               decode steps (the ring against a computation without one), and
-               `forward` through the kernels against it;
+  4. parity  - each config that fits one card (NOT_ON_ONE_CARD) at full width
+               and 2 layers in bf16: prefill and 8 decode steps through the
+               kernels against the plain path, h2o-danube's prompt past its
+               window; and the plain path's float32 `forward` against its own
+               prefill and decode steps (the ring against a computation
+               without one), and `forward` through the kernels against it;
+               deepseek-moe-16b (a dense layer, then an MoE layer) at dropless
+               capacity, routing-aware, and in float32 too (ROUTING_NOTE);
   5. serve   - qwen3-14b at full width and depth (40 layers, bf16, seeded
                init): 8 requests of 900-1100 prompt tokens over 4 slots,
-               32 new tokens each; then the other five configs at full width
-               and depth (SERVE_TRAFFIC; h2o-danube's prompts pass its
-               window). Every kernel of a config's path must launch, and no
-               other, decode attention once a layer a decode step;
+               32 new tokens each; then the other configs that fit one card
+               at full width and depth (SERVE_TRAFFIC; h2o-danube's prompts
+               pass its window; deepseek-moe-16b at its published capacity,
+               two admissions). Every kernel of a config's path must launch,
+               and no other, decode attention once a layer a decode step;
   6. trace   - after each config's serve, decode steps of that model at its
                serve shape, timed and traced with torch.profiler: device
-               busy time, idle share, top kernels.
+               busy time, idle share, top kernels (and the MoE layer's ops).
 Then a table of the serve numbers, one JSON line of the kernels and, last,
 the JSON result line. Needs one card; imports nothing of JAX.
 """
@@ -65,6 +68,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref  # noqa: E402
 from repro_torch.launch.serve import run as serve_run  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.params import layer_params  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense tensor-core bf16 FLOP/s (data sheet)
@@ -84,6 +89,31 @@ REL_TOL = 1e-2
 # tolerance of the serving invariant (the float32 forward against prefill and
 # decode steps): the bar of tests/test_decode_equivalence.py
 FORWARD_TOL = 2e-3
+# ROUTING_NOTE: an MoE layer's top-k routing is a discrete decision, so a bar on
+# logits alone is ill-posed across it. With random init the router logits spread
+# ~0.9 and the 6th and 7th of 64 lie ~0.09 apart, while bf16 rounding moves a
+# logit by ~4e-3: a few per cent of tokens may take another expert on the kernel
+# path than on the plain path, which moves that token's output by about a sixth
+# of an expert's, far over the bf16 floor. So phase 4 runs MoE configs at
+# dropless capacity (one token's routing cannot drop another, as JAX's
+# tests/test_decode_equivalence.py does), keeps each run's routing
+# (`moe.routing_record`), and holds float32 to identical routing and bf16 to the
+# logits bar at the positions that no differing routing reaches. A token that is
+# routed differently must be a near tie: its gap (k-th minus (k+1)-th router
+# probability) in the float32 run must be under MOE_GAP_MARGIN. The margin is the
+# bf16 perturbation of that gap, its largest over the tokens routed alike, as
+# measured by this phase on the CPU at deepseek's full width (vocabulary and
+# expert width cut, which the router's input does not see) over seeds 0-2:
+# 1.37e-3, 1.34e-3, 1.35e-3 on the kernel path (the kernels' plain versions),
+# 1.57e-3, 1.04e-3, 1.30e-3 on the plain path; a flip needs a gap under twice
+# the perturbation, and the margin is 2.5 x 1.6e-3 for the card's other rounding
+# (tests/test_torch_smoke.py::test_moe_gap_margin_covers_the_bf16_perturbation).
+# The run also requires that the gap moved by less than the margin at every
+# token routed alike.
+MOE_GAP_MARGIN = 4e-3
+# float32 bar of phase 4's kernel-vs-plain logits: the kernels' float32 bar,
+# scaled by the size of the logits (the bar's 2e-5 is for outputs of order one)
+FP32_LOGIT_TOL = 2e-5
 # COLD_L2_NOTE: in serving, each layer's cache is read once a step, with ~26 GB
 # of weights streamed between two reads of it, so it is cold in the 50 MB L2.
 # One (4, 2048, 8, 128) K/V pair is 33.5 MB, and a call reads 18 MB of it: timed
@@ -99,13 +129,18 @@ ROTATION = 8
 
 # phase 5's traffic for the configs after qwen3-14b (which keeps the defaults of
 # `phase_serve`): h2o-danube's prompts pass its 4096-token window, so that each
-# admission prefills past it and decode reads a full ring; the rest are served
-# at qwen3-14b's prompt lengths with half its requests and new tokens
+# admission prefills past it and decode reads a full ring; the other dense configs
+# at qwen3-14b's prompt lengths with half its requests and new tokens; and
+# deepseek-moe-16b with 8 requests, so that a second admission prefills padding
+# positions (which route and compete for expert capacity like any other token)
 SERVE_TRAFFIC = {
     "h2o_danube_1p8b": dict(requests=8, prompt_len=(4200, 4600), max_new=32, max_len=8192),
     **{arch: dict(requests=4, prompt_len=(900, 1100), max_new=16, max_len=2048)
        for arch in ("pixtral_12b", "starcoder2_3b", "minitron_8b", "musicgen_large")},
+    "deepseek_moe_16b": dict(requests=8, prompt_len=(900, 1100), max_new=16, max_len=2048),
 }
+# ported configs that one card cannot hold, and why: phases 4-6 leave them out
+NOT_ON_ONE_CARD = {"arctic_480b": "~960 GB of bf16 experts: waits for distribution (ROADMAP A6)"}
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:20"),
@@ -218,9 +253,12 @@ def phase_build() -> None:
                 f"{spills} B spill stores")
             fn = None
     # the decode kernel's clusters at the serving shapes: qwen3-14b (4 slots, n_valid
-    # 1100) and h2o-danube (dh 80 in padded tiles, a full ring of 4096 slots)
-    for name, (nv, G, dh) in (("qwen3-14b", (1100, 5, 128)), ("h2o-danube-1.8b", (4096, 4, 80))):
-        plan = dec_kernel.card_plan(nv, 4, 8, G, dh)
+    # 1100), h2o-danube (dh 80 in padded tiles, a full ring of 4096 slots) and
+    # deepseek-moe-16b (16 kv heads, G 1)
+    for name, (nv, Hkv, G, dh) in (("qwen3-14b", (1100, 8, 5, 128)),
+                                   ("h2o-danube-1.8b", (4096, 8, 4, 80)),
+                                   ("deepseek-moe-16b", (1100, 16, 1, 128))):
+        plan = dec_kernel.card_plan(nv, 4, Hkv, G, dh)
         log(f"[build] decode_attention {name} plan: grid {plan.grid}, clusters of {plan.n_split} "
             f"CTAs ({plan.grid[1] * plan.grid[2]} clusters), {plan.stages}-stage TMA ring, "
             f"{plan.smem} B shared memory a CTA; cudaOccupancyMaxActiveClusters: "
@@ -352,7 +390,7 @@ def _decode_timing(rng, dev, check, B, Hkv, G, T, dh, nv) -> dict:
 def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128, S=1024,
                   fa_lens=(1000, 1024, 1100), T=2048, nvs=(1, 1000, 1100, 2048), nv=1100,
                   danube_fa=(4, 32, 8, 4608, 80, 4096), danube_dec=(4, 8, 4, 4096, 80, 4096),
-                  sweeps=True) -> dict:
+                  deepseek_dec=(4, 16, 1, 2048, 128, 1100), sweeps=True) -> dict:
     """Compare each kernel with its plain version and time it; returns per-kernel records.
 
     Compared at the serving shapes (prefill rows, qk-norm rows, prompt lengths
@@ -362,7 +400,9 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     a rotation of ROTATION caches (see COLD_L2_NOTE). The attention kernels
     are also compared and timed at h2o-danube's serving shapes (`extra`):
     prefill `danube_fa` = (B, Hq, Hkv, S, dh, window), past its window, and
-    decode `danube_dec` = (B, Hkv, G, T, dh, n_valid) on a full ring.
+    decode `danube_dec` = (B, Hkv, G, T, dh, n_valid) on a full ring; decode
+    also at deepseek-moe-16b's serving shape `deepseek_dec` (16 kv heads, G 1,
+    so one row of the 64-row `wgmma` tile is live).
     """
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
@@ -464,7 +504,8 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
         check("decode_attention", f"B{b} Hkv{hk} G{g} T{t} dh{e} nv{n} {str(dt)[6:]}",
               dec_ops.decode_attention(qd, kt, vt, n), decode_attention_ref(qd, kt, vt, n), dt)
     rec["decode_attention"].update(_decode_timing(rng, dev, check, B, Hkv, G, T, dh, nv))
-    rec["decode_attention"]["extra"] = [_decode_timing(rng, dev, check, *danube_dec)]
+    rec["decode_attention"]["extra"] = [_decode_timing(rng, dev, check, *danube_dec),
+                                        _decode_timing(rng, dev, check, *deepseek_dec)]
     for name, r in rec.items():
         for t in [r, *r.get("extra", [])]:
             lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
@@ -475,6 +516,60 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
 
 
 # -------------------------------------------------------------------- phase 4
+def _prefill_decode(model, p, toks, prompt, steps):
+    """Prefill `prompt` tokens, then decode the next `steps` teacher-forced: the
+    logits (steps + 1, B, V) and the MoE layers' routing record of the run."""
+    with moe.routing_record() as rec:
+        logits, cache = model.prefill(p, {"tokens": toks[:, :prompt]}, prompt + steps)
+        outs = [logits]
+        for t in range(prompt, prompt + steps):
+            logits, cache = model.decode_step(p, cache, toks[:, t:t + 1])
+            outs.append(logits)
+    return torch.stack(outs), rec
+
+
+def _forward(model, p, toks, prompt):
+    """`forward` over all of `toks`: the logits at the positions of `_prefill_decode`'s
+    (steps + 1, B, V), the aux metrics and the routing record."""
+    with moe.routing_record() as rec:
+        hidden, aux = model.forward(p, {"tokens": toks})
+        logits = model._head(p, hidden[:, prompt - 1:]).transpose(0, 1)
+    return logits, aux, rec
+
+
+def stack_routing(rec: list, n_moe: int, batch: int):
+    """A routing record of consecutive model calls, each making one call a MoE
+    layer in layer order, as (expert sets (n_moe, B, S, K), sorted within a token,
+    and gaps (n_moe, B, S)) over the calls' S positions, on the host."""
+    ids, gaps = [], []
+    for layer in range(n_moe):
+        calls = rec[layer::n_moe]
+        ids.append(torch.cat([t.reshape(batch, -1, t.shape[-1]) for t, _ in calls], 1).sort(-1).values)
+        gaps.append(torch.cat([g.reshape(batch, -1) for _, g in calls], 1))
+    return torch.stack(ids).cpu(), torch.stack(gaps).float().cpu()
+
+
+def routing_split(routes: dict, labels, first: int):
+    """Where the runs `labels` route alike (ROUTING_NOTE).
+
+    Returns the tokens (n_moe, B, S) whose expert set differs between any two of
+    the runs, and the logits positions (P, B), from position `first` on, that no
+    such token can reach: a token's own routing in the last MoE layer, and in an
+    earlier MoE layer that of the token or any before it in its row (attention
+    after that layer carries it on)."""
+    ids = [routes[label][0] for label in labels]
+    diff = torch.zeros(ids[0].shape[:-1], dtype=torch.bool)
+    for a, b in itertools.combinations(ids, 2):
+        diff |= (a != b).any(-1)
+    reach = diff[-1] | diff[:-1].any(0).int().cummax(-1).values.bool()
+    return diff, ~reach[:, first:].T
+
+
+def _err_at(a, b, where) -> float:
+    """Max abs difference of two (P, B, V) logits over the positions `where` (P, B)."""
+    return (a.float() - b.float()).abs().amax(-1)[where].max().item() if where.any() else 0.0
+
+
 def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
     """Kernel path against the plain path on the card, both in the config's dtype.
 
@@ -492,46 +587,70 @@ def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
     logits within FORWARD_TOL: the serving invariant, ring order included.
     `forward` through the kernels (flash attention without a cache) is held
     to that float32 forward at the tolerance above.
+
+    An MoE config runs at dropless capacity and routing-aware (ROUTING_NOTE):
+    the kernel path also in float32, where its routing must equal the plain
+    float32 path's and its logits lie within FP32_LOGIT_TOL; the bf16 logits
+    are compared at the positions no differing routing reaches, and a token
+    routed differently must have a float32 gap under MOE_GAP_MARGIN. The
+    drop fraction of a bf16 `forward` at the published capacity is logged.
     """
     if prompt is None:
         prompt = 300 if cfg.sliding_window is None else cfg.sliding_window + 104
+    published = cfg
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
     params = Model(cfg).init(seed, dev)
     params32 = cast_tree(params, torch.float32)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt + steps))).to(dev)
-    max_len = prompt + steps
-    runs = {}
-    for label, model, p in (("kernels", Model(cfg), params), ("plain", Model(cfg, kernels=False), params),
-                            ("plain_fp32", Model(cfg32, kernels=False), params32)):
-        logits, cache = model.prefill(p, {"tokens": toks[:, :prompt]}, max_len)
-        outs = [logits]
-        for t in range(prompt, prompt + steps):
-            logits, cache = model.decode_step(p, cache, toks[:, t:t + 1])
-            outs.append(logits)
-        runs[label] = torch.stack(outs)
-        del cache
+    variants = [("kernels", Model(cfg), params), ("plain", Model(cfg, kernels=False), params),
+                ("plain_fp32", Model(cfg32, kernels=False), params32)]
+    if cfg.moe is not None:
+        variants.append(("kernels_fp32", Model(cfg32), params32))
+    n_moe = Model(cfg).n_scan if cfg.moe is not None else 0
+    runs, routes = {}, {}
+    for label, model, p in variants:
+        runs[label], rec = _prefill_decode(model, p, toks, prompt, steps)
+        if n_moe:
+            routes[label] = stack_routing(rec, n_moe, batch)
     if not torch.isfinite(runs["kernels"]).all():
         raise AssertionError("kernel path gave non-finite logits")
-    err = _err(runs["kernels"], runs["plain"])
-    floor = _err(runs["plain"], runs["plain_fp32"])
+    alike = torch.ones(runs["kernels"].shape[:2], dtype=torch.bool)
+    out = {}
+    if n_moe:
+        out.update(_routing_checks(cfg, runs, routes, prompt))
+        alike = out.pop("alike").to(dev)
+    err = _err_at(runs["kernels"], runs["plain"], alike)
+    floor = _err_at(runs["plain"], runs["plain_fp32"], alike)
     tol = 2 * floor
     agree = (runs["kernels"].argmax(-1) == runs["plain"].argmax(-1)).float().mean().item()
     ring = "" if cfg.sliding_window is None else f" (window {cfg.sliding_window}: decode on a full ring)"
+    where = "" if not n_moe else f" at the {int(alike.sum())} of {alike.numel()} positions routed alike"
     log(f"[parity] {cfg.name} d{cfg.d_model} L{cfg.num_layers} {cfg.dtype}: prefill {prompt}{ring} + "
-        f"{steps} decode steps, max_abs_err kernels vs plain {err:.4e}, tolerance {tol:.4e} (2 x bf16 "
-        f"floor {floor:.4e}), kernels vs fp32 {_err(runs['kernels'], runs['plain_fp32']):.4e}, "
+        f"{steps} decode steps{where}, max_abs_err kernels vs plain {err:.4e}, tolerance {tol:.4e} "
+        f"(2 x bf16 floor {floor:.4e}), kernels vs fp32 "
+        f"{_err_at(runs['kernels'], runs['plain_fp32'], alike):.4e}, "
         f"max |logit| {runs['plain'].abs().max().item():.3f}, greedy agreement {agree:.4f}")
     if not err <= tol:
         raise AssertionError(f"parity: {err} > {tol}")
-    fwd = {}
+    fwd, fwd_routes = {}, {}
     for label, model, p in (("kernels", Model(cfg), params),
                             ("plain_fp32", Model(cfg32, kernels=False), params32)):
-        hidden, _ = model.forward(p, {"tokens": toks})
-        fwd[label] = model._head(p, hidden[:, prompt - 1:prompt + steps]).transpose(0, 1)
-        del hidden
-    fwd_err = _err(fwd["plain_fp32"], runs["plain_fp32"])
-    kfwd_err = _err(fwd["kernels"], fwd["plain_fp32"])
+        fwd[label], _, rec = _forward(model, p, toks, prompt)
+        if n_moe:
+            fwd_routes[label] = stack_routing(rec, n_moe, batch)
+    fwd_alike = kfwd_alike = torch.ones_like(alike)
+    if n_moe:  # the float32 forward against the float32 prefill + decode, and the kernels against it
+        fwd_alike = _routed_alike("forward fp32 vs its prefill + decode",
+                                  {"fwd": fwd_routes["plain_fp32"], "plain_fp32": routes["plain_fp32"]},
+                                  ("fwd", "plain_fp32"), "plain_fp32", prompt)[1].to(dev)
+        kfwd_alike = _routed_alike("forward kernels vs forward fp32", fwd_routes,
+                                   ("kernels", "plain_fp32"), "plain_fp32", prompt)[1].to(dev)
+    fwd_err = _err_at(fwd["plain_fp32"], runs["plain_fp32"], fwd_alike)
+    kfwd_err = _err_at(fwd["kernels"], fwd["plain_fp32"], kfwd_alike)
     log(f"[parity] {cfg.name} forward over {prompt + steps} tokens: float32 plain vs its prefill + "
         f"decode steps max_abs_err {fwd_err:.4e} (tol {FORWARD_TOL:g}); through the kernels vs "
         f"float32 plain {kfwd_err:.4e} (tolerance {tol:.4e})")
@@ -539,7 +658,56 @@ def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
         raise AssertionError(f"parity: forward {fwd_err} >= {FORWARD_TOL}")
     if not kfwd_err <= tol:
         raise AssertionError(f"parity: forward through the kernels {kfwd_err} > {tol}")
-    return {"max_abs_err": err, "tolerance": tol, "greedy_agreement": agree, "forward_err": fwd_err}
+    if n_moe:
+        _, aux, _ = _forward(Model(published), params, toks, prompt)
+        out["drop_frac_published"] = float(aux["moe_drop_frac"])
+        log(f"[parity] {cfg.name} bf16 forward over the same tokens at the published capacity "
+            f"factor {published.moe.capacity_factor:g}: moe_drop_frac {out['drop_frac_published']:.4f} "
+            "(read, not checked)")
+    return {**out, "max_abs_err": err, "tolerance": tol, "greedy_agreement": agree,
+            "forward_err": fwd_err}
+
+
+def _routed_alike(what: str, routes: dict, labels, ref: str, prompt: int):
+    """`routing_split` of the runs `labels`, checked: every token routed differently
+    must have a gap under MOE_GAP_MARGIN in the run `ref`."""
+    diff, alike = routing_split(routes, labels, prompt - 1)
+    gaps = routes[ref][1][diff]
+    log(f"[parity] routing, {what}: {int(diff.sum())} of {diff.numel()} token routings differ, "
+        f"{int((~alike).sum())} of {alike.numel()} logits positions reached; their gaps in {ref} "
+        f"{[f'{g:.2e}' for g in gaps.tolist()]} (margin {MOE_GAP_MARGIN:g})")
+    if gaps.numel() and not gaps.max().item() < MOE_GAP_MARGIN:
+        raise AssertionError(f"routing: {what}: a token routed differently at gap "
+                             f"{gaps.max().item()} >= {MOE_GAP_MARGIN}")
+    if not alike.any():
+        raise AssertionError(f"routing: {what}: no position is routed alike")
+    return diff, alike
+
+
+def _routing_checks(cfg, runs, routes, prompt) -> dict:
+    """ROUTING_NOTE's checks of the prefill + decode runs: float32 routing identical
+    and logits within FP32_LOGIT_TOL; the bf16 runs' routing split."""
+    f32_diff, _ = routing_split(routes, ("kernels_fp32", "plain_fp32"), prompt - 1)
+    f32_err = _err(runs["kernels_fp32"], runs["plain_fp32"])
+    f32_tol = FP32_LOGIT_TOL * max(1.0, runs["plain_fp32"].abs().max().item())
+    log(f"[parity] {cfg.name} float32: kernels vs plain routing differs at {int(f32_diff.sum())} of "
+        f"{f32_diff.numel()} token routings; logits max_abs_err {f32_err:.4e} (tol {f32_tol:.4e} = "
+        f"{FP32_LOGIT_TOL:g} x max(1, max |logit|))")
+    if f32_diff.any():
+        raise AssertionError("parity: float32 kernel path routed differently from the plain path")
+    if not f32_err <= f32_tol:
+        raise AssertionError(f"parity: float32 logits {f32_err} > {f32_tol}")
+    diff, alike = _routed_alike("bf16 kernels, bf16 plain, float32 plain", routes,
+                                ("kernels", "plain", "plain_fp32"), "plain_fp32", prompt)
+    shift = {}
+    for label in ("kernels", "plain"):  # the gaps' bf16 perturbation where the routing agrees
+        shift[label] = (routes[label][1] - routes["plain_fp32"][1]).abs()[~diff].max().item()
+    log(f"[parity] {cfg.name} router gap perturbation at the tokens routed alike, against float32: "
+        f"kernels {shift['kernels']:.3e}, plain {shift['plain']:.3e} (margin {MOE_GAP_MARGIN:g})")
+    if not max(shift.values()) < MOE_GAP_MARGIN:
+        raise AssertionError(f"routing: the bf16 gap perturbation {shift} reaches the margin")
+    return {"alike": alike, "routing_diff": int(diff.sum()), "gap_shift": shift,
+            "fp32_err": f32_err, "fp32_tol": f32_tol}
 
 
 def cast_tree(params: dict, dtype) -> dict:
@@ -601,13 +769,21 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
 
 
 # -------------------------------------------------------------------- phase 6
+# the aten ops of an MoE layer whose device time phase 6 names: the expert
+# products, the routing's top-k, sort and cumulative counts, and the dispatch's
+# gathers and scatters
+MOE_OPS = ("aten::bmm", "aten::topk", "aten::argsort", "aten::cumsum", "aten::scatter_add_",
+           "aten::index", "aten::index_put_", "aten::softmax")
+
+
 def phase_trace(dev, cfg, *, slots=4, prompt=1024, steps=4, seed=0) -> dict:
     """Where a decode step's time goes, at the serve phase's shape.
 
     Times `steps` decode steps with the host clock (ending in a sync), then
     traces the same number of steps with `torch.profiler` and sums the device
     time of every kernel: the device's idle share of a step is one minus
-    their ratio. Prints the kernels that take the most device time.
+    their ratio. Prints the kernels that take the most device time and, for
+    an MoE config, the device time of the MoE layer's ops (MOE_OPS).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -640,7 +816,43 @@ def phase_trace(dev, cfg, *, slots=4, prompt=1024, steps=4, seed=0) -> dict:
     for e in top:
         log(f"[trace]   {e.self_device_time_total / 1e3 / steps:9.3f} ms/step  "
             f"{e.count // steps:5d} calls/step  {e.key[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms}
+    if cfg.moe is not None:
+        out["moe_ms"] = _moe_items(dev, cfg, model, params, prof, slots, steps)
+    return out
+
+
+def _moe_items(dev, cfg, model, params, prof, slots, steps) -> dict:
+    """Phase 6's MoE items: the device time of the MoE layers' ops in the trace, by
+    the aten op that launched them (MOE_OPS), and the MoE layers alone at
+    decode's shape, timed as one CUDA graph, beside the bytes of the weights
+    they read: every expert's, whichever experts the tokens pick."""
+    from torch.autograd import DeviceType
+
+    items = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key in MOE_OPS and e.device_time_total > 0:
+            items[e.key] = e.device_time_total / 1e3 / steps
+            log(f"[trace]   MoE {e.key}: {items[e.key]:.3f} ms/step device time, "
+                f"{e.count // steps} calls/step")
+    layers = [layer_params(params, i)["moe"] for i in range(model.n_scan)]
+    nbytes = sum(t.numel() * t.element_size() for p in layers for t in _tensors(p))
+    x = torch.randn(slots, 1, cfg.d_model, device=dev).to(cfg.compute_dtype)
+    ms = time_ms(lambda: [moe.apply_moe(cfg, p, x, aux=False) for p in layers], iters=2, graph=True)
+    items["moe_layers_alone"] = ms
+    log(f"[trace]   MoE: the {len(layers)} MoE layers at decode's shape ({slots} tokens, capacity "
+        f"{moe.capacity(cfg.moe, slots)} of {cfg.moe.num_experts} experts) timed alone as one CUDA "
+        f"graph: {ms:.3f} ms a step; they read {nbytes / 1e9:.3f} GB of weights (every expert), "
+        f"{nbytes / ms / 1e6:.1f} GB/s, bound {nbytes / HBM * 1e3:.3f} ms")
+    return items
+
+
+def _tensors(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
 
 
 def main() -> None:
@@ -655,6 +867,9 @@ def main() -> None:
     phase_build()
     rec = phase_kernels(dev)
     for arch in ARCHS:
+        if arch in NOT_ON_ONE_CARD:
+            log(f"[parity] {arch} left out: {NOT_ON_ONE_CARD[arch]}")
+            continue
         phase_parity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed)
         torch.cuda.empty_cache()
     full = get_config("qwen3_14b")

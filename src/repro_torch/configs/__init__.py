@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import ModelConfig, MoECfg  # noqa: F401
 
 ARCHS = [
     "qwen3_14b",
@@ -13,6 +13,8 @@ ARCHS = [
     "minitron_8b",
     "musicgen_large",
     "pixtral_12b",
+    "arctic_480b",
+    "deepseek_moe_16b",
 ]
 
 # CLI ids (assignment spelling) -> module names
@@ -23,6 +25,8 @@ ALIASES = {
     "minitron-8b": "minitron_8b",
     "musicgen-large": "musicgen_large",
     "pixtral-12b": "pixtral_12b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 

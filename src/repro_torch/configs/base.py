@@ -1,7 +1,7 @@
 """Model descriptor for the port: the dense-path fields of `repro.configs.base.ModelConfig`.
 
 A copy, not an import: the port does not import the JAX package. Only the
-fields that the dense decoder path reads are kept. MoE, SSM and hybrid
+fields that the dense and MoE decoder paths read are kept. SSM and hybrid
 fields come with the slices that port those families; `attn_impl` and
 `attn_chunk` are not kept, because on CUDA prefill always runs the flash
 kernel and on the CPU its plain version.
@@ -18,9 +18,24 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 
 
 @dataclass(frozen=True)
+class MoECfg:
+    num_experts: int
+    top_k: int
+    d_ff: int  # per-expert ffn width
+    num_shared_experts: int = 0  # deepseek: always-on shared experts (each d_ff wide)
+    dense_residual: bool = False  # arctic: parallel dense MLP residual branch
+    dense_d_ff: int = 0  # width of dense residual / leading dense layers
+    first_k_dense: int = 0  # leading dense layers (deepseek layer 0)
+    capacity_factor: float = 1.25
+    norm_topk: bool = True  # renormalize top-k gate weights
+    aux_loss_coef: float = 0.01
+    # JAX's `shard_ff_dp` is left out: it only places experts on a mesh, and the port has none
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | audio (the families this port runs yet)
+    family: str  # dense | vlm | audio | moe (the families this port runs yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +49,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     sliding_window: int | None = None  # SWA window (h2o-danube)
+    moe: MoECfg | None = None
     input_mode: str = "tokens"  # tokens | embeds (audio/vlm stub frontends)
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # activation compute dtype
@@ -71,5 +87,14 @@ class ModelConfig:
             dtype="float32",
             loss_chunk=32,
         )
+        if self.moe is not None:
+            small["moe"] = replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                d_ff=64,
+                dense_d_ff=128 if self.moe.dense_d_ff else 0,
+                capacity_factor=2.0,
+            )
         small.update(overrides)
         return replace(self, **small)

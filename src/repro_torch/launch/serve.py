@@ -4,10 +4,10 @@
 
 `--arch` takes every ported config (`repro_torch.configs.ALIASES`: qwen3-14b,
 h2o-danube-1.8b, pixtral-12b, starcoder2-3b, minitron-8b, musicgen-large,
-or their module names). The command line runs the reduced config, as the JAX
-launcher does. `run`
-takes any config, so a caller can serve the full-width model with the same
-code (`chip_smoke.py` does).
+deepseek-moe-16b, arctic-480b, or their module names). The command line runs
+the reduced config, as the JAX launcher does. `run` takes any config, so a
+caller can serve the full-width model with the same code (`chip_smoke.py`
+does).
 """
 
 from __future__ import annotations

@@ -4,6 +4,8 @@ Layout. Parameters are a nested dict of tensors with the same keys as the
 JAX pytree (`embed/tok`, `layers/attn/wq`, ...). The per-layer weights stay
 STACKED, `(L, ...)`, exactly as JAX's scan-over-layers keeps them; the model
 loops over `layer_params(params, i)`, which takes views, so nothing is copied.
+An MoE config's leading dense layers are not stacked: `head_layers/"0"/...`,
+as in JAX, and `layers` then stacks the remaining `L - first_k_dense`.
 Every weight keeps the `x @ W` orientation, `(in, out)`, so no transpose is
 needed anywhere.
 
@@ -36,7 +38,7 @@ class PD:
     dtype: torch.dtype | None = None
 
 
-FAMILIES = ("dense", "vlm", "audio")  # the families of the dense decoder
+FAMILIES = ("dense", "vlm", "audio", "moe")  # the families of the dense and MoE decoders
 
 
 def _norm_defs(cfg: ModelConfig, *lead: int) -> dict:
@@ -50,36 +52,78 @@ def _norm_defs(cfg: ModelConfig, *lead: int) -> dict:
     raise ValueError(f"unknown norm {cfg.norm!r}")
 
 
-def param_defs(cfg: ModelConfig) -> dict:
-    """The PD tree of the dense decoder (the keys of JAX's `Model.param_defs`)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    D, L, F = cfg.d_model, cfg.num_layers, cfg.d_ff
-    f32 = torch.float32
+def _mlp_defs(cfg: ModelConfig, ff: int, *lead: int) -> dict:
+    D = cfg.d_model
+    mlp = {"wi": PD((*lead, D, ff)), "wo": PD((*lead, ff, D))}
+    if cfg.gated_mlp:
+        mlp["wg"] = PD((*lead, D, ff))
+    return mlp
+
+
+def _moe_defs(cfg: ModelConfig, *lead: int) -> dict:
+    """`repro.models.moe.moe_defs`: the router (held in float32), E experts, the
+    shared experts as one MLP of their summed width, and arctic's dense branch."""
+    m, D = cfg.moe, cfg.d_model
+    E, F = m.num_experts, m.d_ff
+    defs = {
+        "router": PD((*lead, D, E), dtype=torch.float32),
+        "wi": PD((*lead, E, D, F)),
+        "wo": PD((*lead, E, F, D)),
+    }
+    if cfg.gated_mlp:
+        defs["wg"] = PD((*lead, E, D, F))
+    if m.num_shared_experts:
+        defs["shared"] = _mlp_defs(cfg, F * m.num_shared_experts, *lead)
+    if m.dense_residual:
+        defs["dense"] = _mlp_defs(cfg, m.dense_d_ff or F, *lead)
+    return defs
+
+
+def _layer_defs(cfg: ModelConfig, moe_layer: bool, *lead: int) -> dict:
+    """One decoder layer; MLP layers of an MoE config are `dense_d_ff` wide."""
+    D, f32 = cfg.d_model, torch.float32
     attn = {
-        "wq": PD((L, D, cfg.q_dim)),
-        "wk": PD((L, D, cfg.kv_dim)),
-        "wv": PD((L, D, cfg.kv_dim)),
-        "wo": PD((L, cfg.q_dim, D)),
+        "wq": PD((*lead, D, cfg.q_dim)),
+        "wk": PD((*lead, D, cfg.kv_dim)),
+        "wv": PD((*lead, D, cfg.kv_dim)),
+        "wo": PD((*lead, cfg.q_dim, D)),
     }
     if cfg.qk_norm:
-        attn["q_norm"] = PD((L, cfg.head_dim), init="ones", dtype=f32)
-        attn["k_norm"] = PD((L, cfg.head_dim), init="ones", dtype=f32)
-    mlp = {"wi": PD((L, D, F)), "wo": PD((L, F, D))}
-    if cfg.gated_mlp:
-        mlp["wg"] = PD((L, D, F))
+        attn["q_norm"] = PD((*lead, cfg.head_dim), init="ones", dtype=f32)
+        attn["k_norm"] = PD((*lead, cfg.head_dim), init="ones", dtype=f32)
+    d = {"ln1": _norm_defs(cfg, *lead), "attn": attn, "ln2": _norm_defs(cfg, *lead)}
+    if moe_layer:
+        d["moe"] = _moe_defs(cfg, *lead)
+    else:
+        ff = cfg.moe.dense_d_ff if (cfg.moe and cfg.moe.dense_d_ff) else cfg.d_ff
+        d["mlp"] = _mlp_defs(cfg, ff, *lead)
+    return d
+
+
+def n_head_layers(cfg: ModelConfig) -> int:
+    """Leading dense layers, kept unstacked under `head_layers` (deepseek's layer 0)."""
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """The PD tree of the decoder (the keys of JAX's `Model.param_defs`).
+
+    The first `n_head_layers` layers are dense and sit under `head_layers`,
+    keyed "0", "1", ... and not stacked; the rest are stacked under `layers`,
+    and are MoE layers when the config has an MoE block.
+    """
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    n_head = n_head_layers(cfg)
     defs: dict[str, Any] = {
-        "embed": {"tok": PD((cfg.vocab_size, D))},
+        "embed": {"tok": PD((cfg.vocab_size, cfg.d_model))},
         "final_norm": _norm_defs(cfg),
-        "layers": {
-            "ln1": _norm_defs(cfg, L),
-            "attn": attn,
-            "ln2": _norm_defs(cfg, L),
-            "mlp": mlp,
-        },
     }
+    if n_head:
+        defs["head_layers"] = {str(i): _layer_defs(cfg, False) for i in range(n_head)}
+    defs["layers"] = _layer_defs(cfg, cfg.moe is not None, cfg.num_layers - n_head)
     if not cfg.tie_embeddings:
-        defs["lm_head"] = {"w": PD((D, cfg.vocab_size))}
+        defs["lm_head"] = {"w": PD((cfg.d_model, cfg.vocab_size))}
     return defs
 
 

@@ -1,15 +1,20 @@
-"""Model assembly of the dense decoder: [norm -> GQA attn -> norm -> MLP] x L.
+"""Model assembly of the decoder: [norm -> GQA attn -> norm -> MLP or MoE] x L.
 
-Port of the dense, vlm and audio families of `repro.models.transformer` for
-inference (`forward`, `loss`, `prefill`, `init_cache`, `decode_step`); MoE,
+Port of the dense, vlm, audio and moe families of `repro.models.transformer`
+for inference (`forward`, `loss`, `prefill`, `init_cache`, `decode_step`);
 hybrid and RWKV come in later slices, and the backward with training. A
 Python loop over the layers replaces `lax.scan`, over views of the stacked
-`(L, ...)` parameters.
+`(L, ...)` parameters. In an MoE config the MLP of each stacked layer is the
+routed MoE layer (`models/moe.py`), and the first `first_k_dense` layers are
+dense and unstacked (`head_layers`, deepseek's layer 0), run before them.
 
-The cache is a dict of JAX's structure, `{"layers": {"kv": {"k", "v"}},
-"pos"}`, with `k`/`v` stacked `(L, B, W, Hkv, dh)` and `pos` a host int. It
-is updated IN PLACE: `decode_step` writes into the tensors it is given and
-returns the same dict (JAX donates the cache buffers to the same effect).
+The cache is a dict of JAX's structure, `{"head_layers": {"0": {"kv": {"k",
+"v"}}}, "layers": {"kv": {"k", "v"}}, "pos"}`, with the stacked `k`/`v`
+`(L - first_k_dense, B, W, Hkv, dh)`, a head layer's `(B, W, Hkv, dh)`, and
+`pos` a host int; `head_layers` is there only when the config has head
+layers. It is updated IN PLACE: `decode_step` writes into the tensors it is
+given and returns the same dict (JAX donates the cache buffers to the same
+effect).
 
 `Model(cfg, kernels=True)` runs the pre-norms, the fused residual-add norm,
 the qk-norms and both attentions through the port's CUDA kernels (their
@@ -26,13 +31,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
-from repro_torch.models.params import FAMILIES, count_params, init_params, layer_params
+from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
+                                       n_head_layers)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # where the ROADMAP queues the families the port does not run yet
-NOT_PORTED = {"moe": "A2 (MoE)", "hybrid": "A3 (Mamba2 + hybrid)", "ssm": "A3/A4 (Mamba2, RWKV6)"}
+NOT_PORTED = {"hybrid": "A3 (Mamba2 + hybrid)", "ssm": "A3/A4 (Mamba2, RWKV6)"}
 
 
 def zero_aux(device) -> dict:
@@ -45,7 +52,8 @@ def _norm(p: dict, x: torch.Tensor, kernels: bool) -> torch.Tensor:
 
 
 def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
-    """One layer. `cache` is the layer's {"k", "v"}, filled (prefill) or extended (decode)."""
+    """One layer: (x, aux). `cache` is the layer's {"k", "v"}, filled (prefill) or
+    extended (decode). `aux` holds an MoE layer's metrics in `forward`, else None."""
     h = _norm(p["ln1"], x, kernels)
     if mode == "forward":
         a = attn.self_attention(cfg, p["attn"], h, kernels=kernels)
@@ -58,7 +66,10 @@ def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
     else:
         x = x + a
         h = apply_norm(p["ln2"], x)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    if "moe" in p:
+        m, aux = moe.apply_moe(cfg, p["moe"], h, aux=mode == "forward")
+        return x + m, aux
+    return x + apply_mlp(p["mlp"], h, cfg.act), None
 
 
 class Model:
@@ -71,12 +82,25 @@ class Model:
                                       f"(ROADMAP {item})")
         self.cfg = cfg
         self.kernels = kernels
+        self.n_head = n_head_layers(cfg)
+        self.n_scan = cfg.num_layers - self.n_head
 
     def init(self, seed: int, device: torch.device) -> dict:
         return init_params(self.cfg, seed, device)
 
     def param_count(self) -> int:
         return count_params(self.cfg)
+
+    def _layers(self, params: dict) -> list[dict]:
+        """Each layer's parameters in order: the head layers, then views of the stacked."""
+        return ([params["head_layers"][str(i)] for i in range(self.n_head)]
+                + [layer_params(params, i) for i in range(self.n_scan)])
+
+    def _caches(self, cache: dict) -> list[dict]:
+        """Each layer's {"k", "v"} in the same order (views of the stacked leaves)."""
+        kv = cache["layers"]["kv"]
+        return ([cache["head_layers"][str(i)]["kv"] for i in range(self.n_head)]
+                + [{"k": kv["k"][i], "v": kv["v"][i]} for i in range(self.n_scan)])
 
     def _inputs_to_hidden(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
@@ -93,26 +117,33 @@ class Model:
     def forward(self, params: dict, batch: dict):
         """Full-sequence forward: (final hidden (B, S, D), aux).
 
-        `aux` holds JAX's MoE metrics, all zero for these families. Inference
-        only: no remat, and the kernels have no backward yet.
+        `aux` holds JAX's MoE metrics, summed over the stacked layers and
+        divided by their number (the head layers are dense and add nothing),
+        all zero for the dense families. Inference only: no remat, and the
+        kernels have no backward yet.
         """
         x = self._inputs_to_hidden(params, batch)
-        for i in range(self.cfg.num_layers):
-            x = _apply_dense_layer(self.cfg, layer_params(params, i), x, "forward",
-                                   kernels=self.kernels)
-        return _norm(params["final_norm"], x, self.kernels), zero_aux(x.device)
+        aux = zero_aux(x.device)
+        for p in self._layers(params):
+            x, a = _apply_dense_layer(self.cfg, p, x, "forward", kernels=self.kernels)
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+        aux = {k: v / max(self.n_scan, 1) for k, v in aux.items()}
+        return _norm(params["final_norm"], x, self.kernels), aux
 
     def loss(self, params: dict, batch: dict):
         """Next-token CE over `loss_chunk`-token chunks of fp32 logits: (loss, metrics).
 
         `batch["labels"]` (B, S) holds each position's target, -1 where it is
         ignored; S must be a multiple of the chunk. A chunk's (B, chunk, V)
-        logits are the only ones alive at a time.
+        logits are the only ones alive at a time. An MoE config adds
+        `aux_loss_coef` times the load-balance and z losses to the CE.
         """
+        cfg = self.cfg
         x, aux = self.forward(params, batch)
         labels = batch["labels"]
         B, S, _ = x.shape
-        chunk = min(self.cfg.loss_chunk, S)
+        chunk = min(cfg.loss_chunk, S)
         if S % chunk:
             raise ValueError(f"sequence {S} is not a multiple of loss_chunk {chunk}")
         tot = n = hits = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -125,42 +156,41 @@ class Model:
             n = n + valid.sum()
             hits = hits + ((logits.argmax(-1) == y).float() * valid).sum()
         n = n.clamp_min(1.0)
-        ce = tot / n
-        return ce, {"loss": ce, "ce": ce, "accuracy": hits / n, **aux}
+        ce = loss = tot / n
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_coef * (aux["moe_lb_loss"] + aux["moe_z_loss"])
+        return loss, {"loss": loss, "ce": ce, "accuracy": hits / n, **aux}
 
     def init_cache(self, batch_size: int, max_len: int, device) -> dict:
         """Zeroed cache for decode-from-scratch."""
-        cfg = self.cfg
-        one = attn.init_attn_cache(cfg, batch_size, max_len, device)
-        kv = {k: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=device)
+        one = attn.init_attn_cache(self.cfg, batch_size, max_len, device)
+        kv = {k: torch.zeros((self.n_scan, *t.shape), dtype=t.dtype, device=device)
               for k, t in one.items()}
-        return {"layers": {"kv": kv}, "pos": 0}
+        cache = {"layers": {"kv": kv}, "pos": 0}
+        if self.n_head:
+            cache["head_layers"] = {
+                str(i): {"kv": attn.init_attn_cache(self.cfg, batch_size, max_len, device)}
+                for i in range(self.n_head)}
+        return cache
 
     def prefill(self, params: dict, batch: dict, max_len: int):
         """Returns (last-token logits (B, V) fp32, decode-ready cache)."""
-        cfg = self.cfg
         x = self._inputs_to_hidden(params, batch)
         B, S, _ = x.shape
         cache = self.init_cache(B, max_len, x.device)
-        kv = cache["layers"]["kv"]
-        for i in range(cfg.num_layers):
-            x = _apply_dense_layer(cfg, layer_params(params, i), x, "prefill",
-                                   {"k": kv["k"][i], "v": kv["v"][i]}, max_len=max_len,
-                                   kernels=self.kernels)
+        for p, c in zip(self._layers(params), self._caches(cache)):
+            x, _ = _apply_dense_layer(self.cfg, p, x, "prefill", c, max_len=max_len,
+                                      kernels=self.kernels)
         x = _norm(params["final_norm"], x[:, -1].contiguous(), self.kernels)
         cache["pos"] = S
         return self._head(params, x), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         """One autoregressive step. tokens: (B, 1) -> (logits (B, V) fp32, cache)."""
-        cfg = self.cfg
         pos = cache["pos"]
-        x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
-        kv = cache["layers"]["kv"]
-        for i in range(cfg.num_layers):
-            x = _apply_dense_layer(cfg, layer_params(params, i), x, "decode",
-                                   {"k": kv["k"][i], "v": kv["v"][i]}, pos=pos,
-                                   kernels=self.kernels)
+        x = embed_lookup(params["embed"], tokens, self.cfg.compute_dtype)
+        for p, c in zip(self._layers(params), self._caches(cache)):
+            x, _ = _apply_dense_layer(self.cfg, p, x, "decode", c, pos=pos, kernels=self.kernels)
         x = _norm(params["final_norm"], x[:, 0].contiguous(), self.kernels)
         cache["pos"] = pos + 1
         return self._head(params, x), cache

@@ -137,9 +137,13 @@ class ServeEngine:
         mask = np.zeros((B,), bool)
         mask[slots_to_fill] = True
         sel = torch.from_numpy(mask).to(self.device)
-        # stacked-layer leaves are (L, B, ...): splice the admitted slots in place
+        # stacked-layer leaves are (L, B, ...), a head layer's (B, ...): splice the
+        # admitted slots in place
         for name, old in cache["layers"]["kv"].items():
             old[:, sel] = new_cache["layers"]["kv"][name][:, sel]
+        for i, layer in cache.get("head_layers", {}).items():
+            for name, old in layer["kv"].items():
+                old[sel] = new_cache["head_layers"][i]["kv"][name][sel]
         cache["pos"] = max(cache["pos"], new_cache["pos"])  # slots decode in lockstep
         if logits_np is not None:
             logits_np[mask] = new_logits[mask]

@@ -10,6 +10,8 @@ Tolerances are the JAX package's kernel bars (`tests/test_kernels.py`):
 2e-5 in float32 (sums taken in another order) and 3e-2 in bfloat16.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+from repro_torch.configs import get_config
+from repro_torch.models import moe
+from repro_torch.models.params import init_params, layer_params
 
 pytestmark = pytest.mark.gpu
 
@@ -142,7 +147,7 @@ def test_rmsnorm_scalar_path_on_misaligned_rows(dev):
      (1, 2, 5, 600, 64, 64), (1, 2, 5, 600, 64, 65), (2, 1, 16, 2048, 128, 1100),
      (1, 1, 1, 2048, 64, 2047), (2, 4, 6, 600, 128, 300), (4, 8, 4, 600, 80, 1),
      (4, 8, 4, 600, 80, 600), (4, 8, 4, 4096, 80, 4096), (1, 2, 5, 600, 80, 65),
-     (4, 2, 12, 2048, 128, 1100), (4, 32, 1, 2048, 64, 1100)],
+     (4, 2, 12, 2048, 128, 1100), (4, 32, 1, 2048, 64, 1100), (4, 16, 1, 2048, 128, 1100)],
 )
 def test_decode_attention_kernel(dev, dtype, B, Hkv, G, T, dh, nv):
     rng = np.random.default_rng(1)
@@ -226,3 +231,50 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # mixed dtypes
         flash_decode(torch.zeros(1, 2, 4, 64, device=dev), kv, kv, 3)
     assert build.LAUNCHES["decode_attention"] == n0
+
+
+def _moe_case(cf):
+    """deepseek-moe-16b's MoE layer at `reduced()`, float32 on the CPU, with x."""
+    cfg = get_config("deepseek_moe_16b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    p = layer_params(init_params(cfg, 0, torch.device("cpu")), 0)["moe"]
+    x = 0.5 * torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    return cfg, p, x
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def test_moe_layer_on_cuda_matches_cpu(dev):
+    """The MoE layer (plain PyTorch, no kernel of its own) on the card against the
+    same call on the CPU, float32, at a capacity that drops tokens: the same
+    routing, the same drops, y within the float32 bar."""
+    cfg, p, x = _moe_case(0.5)
+    with moe.routing_record() as rec:
+        y, aux = moe.apply_moe(cfg, p, x)
+        yc, auxc = moe.apply_moe(cfg, _to(p, dev), x.to(dev))
+    assert float(aux["moe_drop_frac"]) > 0
+    assert torch.equal(rec[0][0], rec[1][0].cpu())
+    assert float(auxc["moe_drop_frac"]) == float(aux["moe_drop_frac"])
+    assert _err(yc.cpu(), y) < TOL[torch.float32]
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        assert abs(float(auxc[k]) - float(aux[k])) < 1e-5, k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_layer_makes_no_host_sync(dev, dtype):
+    """Under `set_sync_debug_mode("error")` any call that waits for the card
+    raises: the layer, its dispatch and its aux make none."""
+    cfg, p, x = _moe_case(0.5)
+    p, x = _to(p, dev), x.to(dev, dtype)
+    p = {k: v if k == "router" or isinstance(v, dict) else v.to(dtype) for k, v in p.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.apply_moe(cfg, p, x)
+        y2, _ = moe.apply_moe(cfg, p, x, aux=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(y.float()).all() and torch.equal(y, y2)
+    assert 0 < float(aux["moe_drop_frac"]) < 1

@@ -73,8 +73,17 @@ def test_port_prefill_decode_matches_jax_forward(setup):
     assert err < 2e-3, err
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_model_refuses_unported_families(family):
     cfg = dataclasses.replace(get_config("qwen3_14b").reduced(), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         Model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "arctic_480b"])
+def test_model_accepts_the_moe_family(arch):
+    """Both MoE configs build at full size (nothing is allocated): deepseek with
+    its leading dense layer outside the stack, arctic with none."""
+    model = Model(get_config(arch))
+    assert model.cfg.family == "moe"
+    assert (model.n_head, model.n_scan) == ((1, 27) if arch == "deepseek_moe_16b" else (0, 35))

@@ -24,6 +24,8 @@ PARAM_COUNTS = {
     "minitron_8b": 7_734_829_056,
     "musicgen_large": 2_424_705_024,
     "pixtral_12b": 12_247_782_400,
+    "deepseek_moe_16b": 16_375_728_128,
+    "arctic_480b": 476_850_275_328,
 }
 
 
@@ -31,7 +33,7 @@ def test_registry_holds_the_dense_family():
     assert sorted(ARCHS) == sorted(PARAM_COUNTS)
     assert ALIASES == {k: v for k, v in JAX_ALIASES.items() if v in ARCHS}
     with pytest.raises(ValueError, match="not ported"):
-        get_config("deepseek-moe-16b")
+        get_config("zamba2-1.2b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -41,6 +43,13 @@ def test_config_fields_match_jax(reduced, arch):
     if reduced:
         ours, theirs = ours.reduced(), theirs.reduced()
     for f in dataclasses.fields(ours):
+        if f.name == "moe" and ours.moe is not None:  # two MoECfg types: field by field
+            for g in dataclasses.fields(ours.moe):
+                assert getattr(ours.moe, g.name) == getattr(theirs.moe, g.name), g.name
+            # JAX's shard_ff_dp only places experts on a mesh, which the port has not
+            assert {g.name for g in dataclasses.fields(theirs.moe)} - {
+                g.name for g in dataclasses.fields(ours.moe)} == {"shard_ff_dp"}
+            continue
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
     assert (ours.q_dim, ours.kv_dim) == (theirs.q_dim, theirs.kv_dim)
     assert str(ours.compute_dtype).removeprefix("torch.") == str(theirs.compute_dtype)
@@ -83,7 +92,7 @@ def test_from_jax_round_trips_bit_equal(dtype, arch):
             np.testing.assert_array_equal(t.numpy(), a, path)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b", "deepseek_moe_16b"])
 def test_own_init_is_seeded_per_leaf(arch):
     cfg = get_config(arch).reduced()
     a, b = tparams.init_params(cfg, 0, CPU), tparams.init_params(cfg, 0, CPU)
@@ -98,6 +107,9 @@ def test_own_init_is_seeded_per_leaf(arch):
     # leaves of one shape draw from their own generators
     assert not torch.equal(a["layers"]["attn"]["wk"], a["layers"]["attn"]["wv"])
     assert a["lm_head"]["w"].dtype == torch.float32
+    if cfg.moe is not None:  # the router is held in float32, as JAX's
+        assert a["layers"]["moe"]["router"].dtype == torch.float32
+        assert a["layers"]["moe"]["wi"].dtype == cfg.pdtype
 
 
 def test_layer_params_are_views():

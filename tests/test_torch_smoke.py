@@ -37,7 +37,7 @@ def test_phase_kernels_rehearsal(monkeypatch):
     rec = chip_smoke.phase_kernels(CPU, rows=32, d=256, heads=4, B=1, Hq=4, Hkv=2, dh=32, S=80,
                                    fa_lens=(70, 80), T=96, nvs=(1, 50, 96), nv=40,
                                    danube_fa=(1, 4, 2, 100, 80, 64), danube_dec=(1, 2, 2, 128, 80, 128),
-                                   sweeps=False)
+                                   deepseek_dec=(1, 4, 1, 96, 128, 50), sweeps=False)
     assert set(rec) == set(chip_smoke.KERNELS)
     for r in rec.values():
         assert r["bound_by"] in ("bytes", "operations") and r["bound_ms"] > 0
@@ -48,10 +48,14 @@ def test_phase_kernels_rehearsal(monkeypatch):
     assert f"cold L2 ({chip_smoke.ROTATION} K/V pairs rotated" in rec["decode_attention"]["shape"]
     # h2o-danube's shapes (dh 80, a window) beside the main ones, with every key of a row
     (fa80,) = rec["flash_attention"]["extra"]
-    (dec80,) = rec["decode_attention"]["extra"]
+    dec80, dec_moe = rec["decode_attention"]["extra"]  # and deepseek-moe-16b's G 1 row
     assert fa80["shape"] == "q (1,4,100,80) kv heads 2 bf16 causal window 64"
     assert dec80["shape"].startswith("q (1,2,2,80) cache (1,128,2,80) n_valid 128")
-    for t in (fa80, dec80):
+    assert dec_moe["shape"].startswith("q (1,4,1,128) cache (1,96,4,128) n_valid 50")
+    # bytes: K and V up to n_valid, q and the output once each
+    assert dec_moe["bound_ms"] == chip_smoke.bound(2 * 4 * 128 * 2 + 2 * 4 * 50 * 128 * 2,
+                                                   4 * 4 * 50 * 128, torch.bfloat16)[0]
+    for t in (fa80, dec80, dec_moe):
         assert {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"} <= t.keys()
     # the flash bound counts the live pairs of the window: 64 * 65 / 2 + 36 * 64
     assert fa80["bound_ms"] == chip_smoke.bound((2 * 4 + 2 * 2) * 100 * 80 * 2, 4 * 80 * (2080 + 2304) * 4,
@@ -63,9 +67,11 @@ def test_live_pairs():
     assert chip_smoke.live_pairs(10, None) == chip_smoke.live_pairs(10, 10) == 55
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b", "h2o_danube_1p8b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b", "h2o_danube_1p8b",
+                                  "deepseek_moe_16b"])
 def test_phase_parity_rehearsal(arch):
-    """h2o-danube takes the phase's own prompt, past its window (16 when reduced)."""
+    """h2o-danube takes the phase's own prompt, past its window (16 when reduced);
+    deepseek-moe-16b runs the routing-aware checks (ROUTING_NOTE)."""
     cfg = _tiny(arch)
     out = chip_smoke.phase_parity(CPU, cfg, batch=2, prompt=None if cfg.sliding_window else 20,
                                   steps=3)
@@ -87,18 +93,27 @@ def test_relative_bar_rejects_the_padded_width_scale():
     assert chip_smoke._err(right, ref) < chip_smoke.TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "musicgen_large"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "musicgen_large", "deepseek_moe_16b"])
 def test_phase_serve_rehearsal_fails_without_launches(arch):
-    cfg = dataclasses.replace(_tiny(arch), num_layers=1)
+    cfg = _tiny(arch)  # deepseek: its dense layer and one MoE layer
+    cfg = cfg if cfg.moe else dataclasses.replace(cfg, num_layers=1)
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.phase_serve(CPU, cfg, requests=3, slots=2, prompt_len=(9, 14), max_new=3,
                                max_len=32)
 
 
 def test_serve_traffic_and_used_kernels():
-    """Phase 5 serves every config of the registry; h2o-danube's prompts pass its
-    window; LayerNorm configs use the attention kernels alone."""
-    assert {"qwen3_14b", *chip_smoke.SERVE_TRAFFIC} == set(chip_smoke.ARCHS)
+    """Phase 5 serves every config of the registry that one card holds, and names
+    why for the others; h2o-danube's prompts pass its window; LayerNorm configs
+    use the attention kernels alone; deepseek-moe-16b all four kernels, with a
+    second admission."""
+    assert {"qwen3_14b", *chip_smoke.SERVE_TRAFFIC, *chip_smoke.NOT_ON_ONE_CARD} == set(chip_smoke.ARCHS)
+    assert not set(chip_smoke.SERVE_TRAFFIC) & set(chip_smoke.NOT_ON_ONE_CARD)
+    assert set(chip_smoke.NOT_ON_ONE_CARD) == {"arctic_480b"}
+    deepseek = chip_smoke.get_config("deepseek_moe_16b")
+    traffic = chip_smoke.SERVE_TRAFFIC["deepseek_moe_16b"]
+    assert traffic["requests"] > 4 and deepseek.moe.capacity_factor == 1.25
+    assert chip_smoke.used_kernels(deepseek) == list(chip_smoke.KERNELS)
     danube = chip_smoke.get_config("h2o_danube_1p8b")
     traffic = chip_smoke.SERVE_TRAFFIC["h2o_danube_1p8b"]
     assert traffic["prompt_len"][0] > danube.sliding_window and traffic["max_len"] >= 4600 + 32
@@ -112,6 +127,15 @@ def test_phase_trace_rehearsal(monkeypatch):
     cfg = dataclasses.replace(_tiny(), num_layers=1)
     out = chip_smoke.phase_trace(CPU, cfg, slots=2, prompt=12, steps=2)
     assert out["wall_ms"] > 0 and out["device_ms"] == 0  # no CUDA kernel runs on a CPU
+
+
+def test_phase_trace_rehearsal_moe(monkeypatch):
+    """deepseek-moe-16b's trace also times its MoE layers alone (a host clock here)."""
+    monkeypatch.setattr(chip_smoke, "sync", lambda: None)
+    monkeypatch.setattr(chip_smoke, "time_ms", _host_ms)
+    out = chip_smoke.phase_trace(CPU, _tiny("deepseek_moe_16b"), slots=2, prompt=12, steps=2)
+    assert out["wall_ms"] > 0 and out["device_ms"] == 0
+    assert set(out["moe_ms"]) == {"moe_layers_alone"}  # no device time to attribute on a CPU
 
 
 def test_bound_picks_the_larger_time():
@@ -128,3 +152,19 @@ def test_timing_reports_rate_and_share_of_bound():
     t = chip_smoke.timing("q", 0.1, 1.0, 0.2, 1.0, 989e12 * 0.05e-3, torch.bfloat16)
     assert t["bound_by"] == "operations" and t["rate"].endswith("TFLOP/s")
     assert abs(t["share_of_bound"] - 0.5) < 1e-12
+
+
+def test_moe_gap_margin_covers_the_bf16_perturbation():
+    """Phase 4 on the CPU at deepseek-moe-16b's full width (2 layers; the
+    vocabulary and the expert width cut, which the router's input does not
+    see): the bf16 perturbation of the router's k-th minus (k+1)-th gap stays
+    within half of MOE_GAP_MARGIN (ROUTING_NOTE), the float32 paths route
+    alike, and every bf16 routing that differs is a near tie."""
+    full = chip_smoke.get_config("deepseek_moe_16b")
+    cfg = dataclasses.replace(full, num_layers=2, vocab_size=512,
+                              moe=dataclasses.replace(full.moe, d_ff=16))
+    out = chip_smoke.phase_parity(CPU, cfg)
+    assert max(out["gap_shift"].values()) < chip_smoke.MOE_GAP_MARGIN / 2
+    assert out["routing_diff"] > 0 and out["fp32_err"] <= out["fp32_tol"]
+    assert 0 <= out["max_abs_err"] <= out["tolerance"]
+    assert 0 < out["drop_frac_published"] < 1  # capacity 1.25 drops, dropless did not
