@@ -15,13 +15,18 @@ Phases, each of which fails the run with a non-zero exit:
                is cold, as it is in serving); the attention kernels also at
                h2o-danube's shapes (dh 80 on the tensor cores, a 4096 window),
                where the kernel launched with the padded width's scale must
-               fail its check (ATTN_BAR_NOTE);
+               fail its check (ATTN_BAR_NOTE), and at zamba2's and musicgen's
+               dh 64 with 32 kv heads (G 1);
   4. parity  - each config that fits one card (NOT_ON_ONE_CARD) at full width
-               and 2 layers in bf16: prefill and 8 decode steps through the
-               kernels against the plain path, h2o-danube's prompt past its
-               window; and the plain path's float32 `forward` against its own
-               prefill and decode steps (the ring against a computation
-               without one), and `forward` through the kernels against it;
+               and 2 layers (PARITY_LAYERS: zamba2-1.2b at 7, one segment and
+               a one-layer tail) in bf16: prefill and 8 decode steps through
+               the kernels against the plain path, h2o-danube's prompt past
+               its window, the 300-token prompt past one Mamba2 chunk (256)
+               and RWKV6 chunks (32) and a multiple of neither; and the plain
+               path's float32 `forward` against its own prefill and decode
+               steps (the ring, and the recurrent states after a padded
+               chunk, against a computation without them), `forward` and
+               `loss` through the kernels against the plain path;
                deepseek-moe-16b (a dense layer, then an MoE layer) at dropless
                capacity, routing-aware, and in float32 too (ROUTING_NOTE);
   5. serve   - qwen3-14b at full width and depth (40 layers, bf16, seeded
@@ -29,11 +34,15 @@ Phases, each of which fails the run with a non-zero exit:
                32 new tokens each; then the other configs that fit one card
                at full width and depth (SERVE_TRAFFIC; h2o-danube's prompts
                pass its window; deepseek-moe-16b at its published capacity,
-               two admissions). Every kernel of a config's path must launch,
-               and no other, decode attention once a layer a decode step;
+               zamba2-1.2b and rwkv6-7b, each with two admissions, which
+               splice the recurrent states). Every kernel of a config's path
+               must launch, and no other (rwkv6-7b's path has none), flash
+               attention once an attention block an admission, decode
+               attention once an attention block a decode step;
   6. trace   - after each config's serve, decode steps of that model at its
                serve shape, timed and traced with torch.profiler: device
-               busy time, idle share, top kernels (and the MoE layer's ops).
+               busy time, idle share, top kernels (and the device items of
+               the MoE layer, of the Mamba2 layers and of the RWKV6 layers).
 Then a table of the serve numbers, one JSON line of the kernels and, last,
 the JSON result line. Needs one card; imports nothing of JAX.
 """
@@ -68,9 +77,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref  # noqa: E402
 from repro_torch.launch.serve import run as serve_run  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.models.params import layer_params  # noqa: E402
-from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.models.transformer import (Model, _apply_mamba_layer,  # noqa: E402
+                                            _apply_rwkv_layer)
 
 PEAK_BF16 = 989e12  # H100 SXM dense tensor-core bf16 FLOP/s (data sheet)
 PEAK_F32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
@@ -137,8 +147,15 @@ SERVE_TRAFFIC = {
     "h2o_danube_1p8b": dict(requests=8, prompt_len=(4200, 4600), max_new=32, max_len=8192),
     **{arch: dict(requests=4, prompt_len=(900, 1100), max_new=16, max_len=2048)
        for arch in ("pixtral_12b", "starcoder2_3b", "minitron_8b", "musicgen_large")},
-    "deepseek_moe_16b": dict(requests=8, prompt_len=(900, 1100), max_new=16, max_len=2048),
+    # 8 requests over 4 slots: a second admission splices the caches (for the
+    # recurrent families, the Mamba2 and RWKV6 states on their slot axes)
+    **{arch: dict(requests=8, prompt_len=(900, 1100), max_new=16, max_len=2048)
+       for arch in ("deepseek_moe_16b", "zamba2_1p2b", "rwkv6_7b")},
 }
+# phase 4's depth where 2 layers do not run every block of the path: zamba2 at
+# attn_every + 1 = 7 layers, one segment [shared block, 6 Mamba2 layers] and a tail
+# [shared block, 1 Mamba2 layer], so both cache forms of the shared block run
+PARITY_LAYERS = {"zamba2_1p2b": 7}
 # ported configs that one card cannot hold, and why: phases 4-6 leave them out
 NOT_ON_ONE_CARD = {"arctic_480b": "~960 GB of bf16 experts: waits for distribution (ROADMAP A6)"}
 
@@ -253,11 +270,12 @@ def phase_build() -> None:
                 f"{spills} B spill stores")
             fn = None
     # the decode kernel's clusters at the serving shapes: qwen3-14b (4 slots, n_valid
-    # 1100), h2o-danube (dh 80 in padded tiles, a full ring of 4096 slots) and
-    # deepseek-moe-16b (16 kv heads, G 1)
+    # 1100), h2o-danube (dh 80 in padded tiles, a full ring of 4096 slots),
+    # deepseek-moe-16b (16 kv heads, G 1) and zamba2-1.2b (32 kv heads, G 1, dh 64)
     for name, (nv, Hkv, G, dh) in (("qwen3-14b", (1100, 8, 5, 128)),
                                    ("h2o-danube-1.8b", (4096, 8, 4, 80)),
-                                   ("deepseek-moe-16b", (1100, 16, 1, 128))):
+                                   ("deepseek-moe-16b", (1100, 16, 1, 128)),
+                                   ("zamba2-1.2b", (1100, 32, 1, 64))):
         plan = dec_kernel.card_plan(nv, 4, Hkv, G, dh)
         log(f"[build] decode_attention {name} plan: grid {plan.grid}, clusters of {plan.n_split} "
             f"CTAs ({plan.grid[1] * plan.grid[2]} clusters), {plan.stages}-stage TMA ring, "
@@ -390,7 +408,8 @@ def _decode_timing(rng, dev, check, B, Hkv, G, T, dh, nv) -> dict:
 def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128, S=1024,
                   fa_lens=(1000, 1024, 1100), T=2048, nvs=(1, 1000, 1100, 2048), nv=1100,
                   danube_fa=(4, 32, 8, 4608, 80, 4096), danube_dec=(4, 8, 4, 4096, 80, 4096),
-                  deepseek_dec=(4, 16, 1, 2048, 128, 1100), sweeps=True) -> dict:
+                  deepseek_dec=(4, 16, 1, 2048, 128, 1100), dh64_fa=(4, 32, 32, 1024, 64, None),
+                  dh64_dec=(4, 32, 1, 2048, 64, 1100), sweeps=True) -> dict:
     """Compare each kernel with its plain version and time it; returns per-kernel records.
 
     Compared at the serving shapes (prefill rows, qk-norm rows, prompt lengths
@@ -402,7 +421,8 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
     prefill `danube_fa` = (B, Hq, Hkv, S, dh, window), past its window, and
     decode `danube_dec` = (B, Hkv, G, T, dh, n_valid) on a full ring; decode
     also at deepseek-moe-16b's serving shape `deepseek_dec` (16 kv heads, G 1,
-    so one row of the 64-row `wgmma` tile is live).
+    so one row of the 64-row `wgmma` tile is live); both at zamba2-1.2b's and
+    musicgen-large's dh 64, MHA with 32 kv heads (`dh64_fa`, `dh64_dec`).
     """
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
@@ -485,7 +505,8 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
         check("flash_attention", f"B{b} Hq{hq} Hkv{hk} S{s} dh{e} win{w} {str(dt)[6:]}",
               fa_ops.flash_attention_bhsd(q, k, v, window=w), attention_ref(q, k, v, window=w), dt)
     rec["flash_attention"].update(_flash_timing(rng, dev, check, B, Hq, Hkv, S, dh, None))
-    rec["flash_attention"]["extra"] = [_flash_timing(rng, dev, check, *danube_fa)]
+    rec["flash_attention"]["extra"] = [_flash_timing(rng, dev, check, *danube_fa),
+                                       _flash_timing(rng, dev, check, *dh64_fa)]
 
     # --- decode attention, cache in the model's (B, T, Hkv, dh) layout
     G = Hq // Hkv
@@ -505,7 +526,8 @@ def phase_kernels(dev, *, rows=4096, d=5120, heads=40, B=4, Hq=40, Hkv=8, dh=128
               dec_ops.decode_attention(qd, kt, vt, n), decode_attention_ref(qd, kt, vt, n), dt)
     rec["decode_attention"].update(_decode_timing(rng, dev, check, B, Hkv, G, T, dh, nv))
     rec["decode_attention"]["extra"] = [_decode_timing(rng, dev, check, *danube_dec),
-                                        _decode_timing(rng, dev, check, *deepseek_dec)]
+                                        _decode_timing(rng, dev, check, *deepseek_dec),
+                                        _decode_timing(rng, dev, check, *dh64_dec)]
     for name, r in rec.items():
         for t in [r, *r.get("extra", [])]:
             lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
@@ -582,11 +604,17 @@ def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
 
     The prompt is 300 tokens, or 104 past the sliding window where there is
     one, so that the windowed prefill writes a ring and each decode step reads
-    a full one (n_valid = W). The plain float32 path's `forward` over the same
-    tokens, which keeps no cache, must then give its prefill and decode
-    logits within FORWARD_TOL: the serving invariant, ring order included.
-    `forward` through the kernels (flash attention without a cache) is held
-    to that float32 forward at the tolerance above.
+    a full one (n_valid = W); 300 is past one Mamba2 chunk (256) and an RWKV6
+    chunk (32) and a multiple of neither, so the sequence paths pad. The plain
+    float32 path's `forward` over the same tokens, which keeps no cache, must
+    then give its prefill and decode logits within FORWARD_TOL: the serving
+    invariant, ring order and the recurrent states left by a padded chunk
+    included. `forward` through the kernels (flash attention without a cache)
+    is held to that float32 forward at the tolerance above. For a config
+    without MoE layers, the `loss` (next-token CE over the same tokens, whole
+    `loss_chunk`s of them) through the kernels is held to the plain path's
+    within twice that tolerance: a token's CE moves by at most twice the
+    largest change of its logits.
 
     An MoE config runs at dropless capacity and routing-aware (ROUTING_NOTE):
     the kernel path also in float32, where its routing must equal the plain
@@ -658,6 +686,8 @@ def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
         raise AssertionError(f"parity: forward {fwd_err} >= {FORWARD_TOL}")
     if not kfwd_err <= tol:
         raise AssertionError(f"parity: forward through the kernels {kfwd_err} > {tol}")
+    if not n_moe:
+        out["loss"] = _loss_check(cfg, variants, toks, 2 * tol)
     if n_moe:
         _, aux, _ = _forward(Model(published), params, toks, prompt)
         out["drop_frac_published"] = float(aux["moe_drop_frac"])
@@ -666,6 +696,24 @@ def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
             "(read, not checked)")
     return {**out, "max_abs_err": err, "tolerance": tol, "greedy_agreement": agree,
             "forward_err": fwd_err}
+
+
+def _loss_check(cfg, variants, toks, tol: float) -> dict:
+    """`loss` of each variant over the first whole `loss_chunk`s of `toks` (or all of
+    them when shorter than a chunk), the next token as each label; kernels against
+    plain within `tol`."""
+    S = toks.shape[1]
+    n = S if S <= cfg.loss_chunk else S - S % cfg.loss_chunk
+    labels = torch.cat([toks[:, 1:n], torch.full_like(toks[:, :1], -1)], 1)
+    batch = {"tokens": toks[:, :n], "labels": labels}
+    losses = {label: float(model.loss(p, batch)[0]) for label, model, p in variants}
+    err = abs(losses["kernels"] - losses["plain"])
+    log(f"[parity] {cfg.name} loss over {n} tokens: kernels {losses['kernels']:.6f}, plain "
+        f"{losses['plain']:.6f}, plain float32 {losses['plain_fp32']:.6f}; kernels vs plain "
+        f"{err:.4e} (tolerance {tol:.4e})")
+    if not (np.isfinite(losses["kernels"]) and err <= tol):
+        raise AssertionError(f"parity: loss through the kernels {err} > {tol}")
+    return {**losses, "err": err}
 
 
 def _routed_alike(what: str, routes: dict, labels, ref: str, prompt: int):
@@ -718,16 +766,29 @@ def cast_tree(params: dict, dtype) -> dict:
 
 # -------------------------------------------------------------------- phase 5
 def used_kernels(cfg) -> list[str]:
-    """The kernels of a config's serve path: LayerNorm configs have no norm kernel."""
+    """The kernels of a config's serve path: LayerNorm configs have no norm kernel, and
+    RWKV6 (LayerNorm, no attention) none at all."""
+    if cfg.family == "ssm":
+        return []
     return ["rmsnorm", "rmsnorm_residual"] * (cfg.norm == "rmsnorm") + ["flash_attention",
                                                                         "decode_attention"]
+
+
+def attention_blocks(cfg) -> int:
+    """Attention blocks a token passes: one a layer; a hybrid's shared block at each
+    of its applications (one a segment, one before the tail); none in RWKV6."""
+    model = Model(cfg)
+    if model.is_hybrid:
+        return model.n_seg + bool(model.n_tail)
+    return 0 if model.is_rwkv else cfg.num_layers
 
 
 def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_new=32,
                 max_len=2048, seed=0) -> dict:
     """Serve `requests` seeded prompts through `launch.serve.run` at the config's
     full width and depth; every kernel of its path must launch, and no other,
-    decode attention once a layer a decode step."""
+    flash attention once an attention block an admission and decode attention
+    once an attention block a decode step (`attention_blocks`)."""
     build.reset_launches()
     out = serve_run(cfg, device=dev, requests=requests, slots=slots, prompt_len=prompt_len,
                     max_new=max_new, max_len=max_len, seed=seed)
@@ -744,12 +805,18 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
     stray = [k for k, n in launches.items() if n and k not in used]
     if stray:
         raise AssertionError(f"serve: {cfg.name} launched kernels off its path: {stray}")
-    steps = out["decode_steps"]
-    if launches["decode_attention"] != cfg.num_layers * steps:
-        raise AssertionError(f"serve: {launches['decode_attention']} decode-attention launches in "
-                             f"{steps} decode steps of {cfg.num_layers} layers")
+    if not used:
+        log(f"[serve] {cfg.name}: no kernel on its path (the {cfg.family} family runs plain "
+            f"PyTorch, as in JAX): the empty set, every count 0: {launches}")
+    steps, admissions = out["decode_steps"], out["admissions"]
+    blocks = attention_blocks(cfg)
+    if (launches["decode_attention"], launches["flash_attention"]) != (blocks * steps,
+                                                                       blocks * admissions):
+        raise AssertionError(f"serve: {launches['flash_attention']} flash and "
+                             f"{launches['decode_attention']} decode-attention launches in "
+                             f"{admissions} admissions and {steps} decode steps of {blocks} "
+                             "attention blocks")
     mem = out["max_memory_allocated"]
-    admissions = launches["flash_attention"] // cfg.num_layers  # one flash launch a layer a prefill
     shortest = min(len(r.prompt) for r in done)
     # every prompt past the window: each admission prefills past it, and each
     # decode step (position >= the shortest prompt) reads a full ring, n_valid = W
@@ -819,7 +886,47 @@ def phase_trace(dev, cfg, *, slots=4, prompt=1024, steps=4, seed=0) -> dict:
     out = {"wall_ms": wall_ms, "device_ms": device_ms}
     if cfg.moe is not None:
         out["moe_ms"] = _moe_items(dev, cfg, model, params, prof, slots, steps)
+    if cfg.ssm is not None:
+        out["ssm_ms"] = _recurrent_items(dev, cfg, model, params, slots)
     return out
+
+
+def _recurrent_items(dev, cfg, model, params, slots) -> dict:
+    """Phase 6's Mamba2 or RWKV6 items: every such layer of the model, one decode step
+    at the serve shape from a zeroed state, alone: traced, with the device time of
+    each aten op that launched kernels (its own kernels, not its children's), and
+    timed as one CUDA graph beside the bytes it must move (weights read once, the
+    states read and written)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    hybrid = cfg.family == "hybrid"
+    apply, init = ((_apply_mamba_layer, lambda: mamba2.init_mamba2_state(cfg, slots, dev))
+                   if hybrid else
+                   (_apply_rwkv_layer, lambda: rwkv6.init_rwkv6_state(cfg, slots, dev)))
+    layers = [layer_params(params, i) for i in range(cfg.num_layers)]
+    states = [init() for _ in layers]
+    x = (0.5 * torch.randn(slots, 1, cfg.d_model, device=dev)).to(cfg.compute_dtype)
+    step = lambda: [apply(cfg, p, x, "decode", st, kernels=model.kernels) for p, st in  # noqa: E731
+                    zip(layers, states)]
+    step()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        sync()
+    items = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0}
+    name = "Mamba2" if hybrid else "RWKV6"
+    for k, ms in sorted(items.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[trace]   {name} layers: {k}: {ms:.3f} ms/step device time")
+    nbytes = sum(t.numel() * t.element_size() for p in layers for t in _tensors(p))
+    nbytes += 2 * sum(t.numel() * t.element_size() for st in states for t in _tensors(st))
+    ms = time_ms(step, iters=2, graph=True)
+    items[f"{name.lower()}_layers_alone"] = ms
+    log(f"[trace]   {name}: the {len(layers)} {name} layers, one decode step at {slots} slots, timed "
+        f"alone as one CUDA graph: {ms:.3f} ms; they move {nbytes / 1e9:.3f} GB (weights once, "
+        f"states read and written), {nbytes / ms / 1e6:.1f} GB/s, bound {nbytes / HBM * 1e3:.3f} ms")
+    return items
 
 
 def _moe_items(dev, cfg, model, params, prof, slots, steps) -> dict:
@@ -870,7 +977,8 @@ def main() -> None:
         if arch in NOT_ON_ONE_CARD:
             log(f"[parity] {arch} left out: {NOT_ON_ONE_CARD[arch]}")
             continue
-        phase_parity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed)
+        phase_parity(dev, dataclasses.replace(get_config(arch), num_layers=PARITY_LAYERS.get(arch, 2)),
+                     seed=args.seed)
         torch.cuda.empty_cache()
     full = get_config("qwen3_14b")
     serves = {full.name: phase_serve(dev, full, seed=args.seed)}

@@ -1,10 +1,10 @@
-"""Architecture registry of the port (the configs ported so far)."""
+"""Architecture registry of the port: every config of the JAX package."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoECfg  # noqa: F401
+from repro_torch.configs.base import ModelConfig, MoECfg, SSMCfg  # noqa: F401
 
 ARCHS = [
     "qwen3_14b",
@@ -15,6 +15,8 @@ ARCHS = [
     "pixtral_12b",
     "arctic_480b",
     "deepseek_moe_16b",
+    "zamba2_1p2b",
+    "rwkv6_7b",
 ]
 
 # CLI ids (assignment spelling) -> module names
@@ -27,6 +29,8 @@ ALIASES = {
     "pixtral-12b": "pixtral_12b",
     "arctic-480b": "arctic_480b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

@@ -1,10 +1,9 @@
-"""Model descriptor for the port: the dense-path fields of `repro.configs.base.ModelConfig`.
+"""Model descriptor for the port: the fields of `repro.configs.base.ModelConfig` it reads.
 
 A copy, not an import: the port does not import the JAX package. Only the
-fields that the dense and MoE decoder paths read are kept. SSM and hybrid
-fields come with the slices that port those families; `attn_impl` and
-`attn_chunk` are not kept, because on CUDA prefill always runs the flash
-kernel and on the CPU its plain version.
+fields that the port's model paths read are kept; `attn_impl` and
+`attn_chunk` are not, because on CUDA prefill always runs the flash kernel
+and on the CPU its plain version.
 """
 
 from __future__ import annotations
@@ -33,9 +32,22 @@ class MoECfg:
 
 
 @dataclass(frozen=True)
+class SSMCfg:
+    kind: str  # "mamba2" | "rwkv6"
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_width: int = 4
+    # rwkv6
+    mix_dim: int = 32
+    decay_lora: int = 64
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | audio | moe (the families this port runs yet)
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -50,6 +62,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int | None = None  # SWA window (h2o-danube)
     moe: MoECfg | None = None
+    ssm: SSMCfg | None = None
+    attn_every: int | None = None  # hybrid: shared attn+mlp block period (zamba2)
     input_mode: str = "tokens"  # tokens | embeds (audio/vlm stub frontends)
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # activation compute dtype
@@ -75,7 +89,7 @@ class ModelConfig:
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the same values as the JAX `reduced()`)."""
         small: dict[str, Any] = dict(
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers, 2 if self.family != "hybrid" else 4),
             d_model=128,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2),
@@ -96,5 +110,10 @@ class ModelConfig:
                 dense_d_ff=128 if self.moe.dense_d_ff else 0,
                 capacity_factor=2.0,
             )
+        if self.ssm is not None:
+            small["ssm"] = replace(self.ssm, d_state=16, head_dim=16, n_groups=1, mix_dim=8,
+                                   decay_lora=8)
+        if self.attn_every is not None:
+            small["attn_every"] = 2
         small.update(overrides)
         return replace(self, **small)

@@ -2,9 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --device cuda
 
-`--arch` takes every ported config (`repro_torch.configs.ALIASES`: qwen3-14b,
-h2o-danube-1.8b, pixtral-12b, starcoder2-3b, minitron-8b, musicgen-large,
-deepseek-moe-16b, arctic-480b, or their module names). The command line runs
+`--arch` takes every config of the port (`repro_torch.configs.ALIASES`:
+qwen3-14b, h2o-danube-1.8b, pixtral-12b, starcoder2-3b, minitron-8b,
+musicgen-large, deepseek-moe-16b, arctic-480b, zamba2-1.2b, rwkv6-7b, or
+their module names). The command line runs
 the reduced config, as the JAX launcher does. `run` takes any config, so a
 caller can serve the full-width model with the same code (`chip_smoke.py`
 does).
@@ -33,7 +34,8 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, requests:
     `prompt_len` is a length, or an inclusive (lo, hi) range to draw each
     prompt's length from. Returns the served requests and the run's numbers:
     host seconds of prefill and of decode (each span ends in a device sync),
-    decode steps, tokens, and the peak device memory where the device is CUDA.
+    admissions, decode steps, tokens, and the peak device memory where the
+    device is CUDA.
     """
     dev = resolve_device(device)
     model = Model(cfg)
@@ -60,6 +62,7 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, requests:
         "seconds": seconds,
         "prefill_seconds": engine.prefill_seconds,
         "decode_seconds": engine.decode_seconds,
+        "admissions": engine.admissions,
         "decode_steps": engine.decode_steps,
         "tokens": n_tok,
         "prompt_tokens": int(sum(len(r.prompt) for r in done)),

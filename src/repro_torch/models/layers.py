@@ -70,3 +70,13 @@ def embed_lookup(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Ten
 def lm_logits(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x: (..., d) -> (..., vocab), computed in `dtype` (JAX promotes x to it)."""
     return x.to(dtype) @ p["w"].to(dtype)
+
+
+def group_norm_heads(p: dict, x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
+    """Per-head GroupNorm over head_dim (RWKV's ln_x), population variance. x: (..., H, dh)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    h, dh = x.shape[-2], x.shape[-1]
+    return (y * p["scale"].reshape(h, dh) + p["bias"].reshape(h, dh)).to(x.dtype)

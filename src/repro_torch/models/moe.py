@@ -17,11 +17,14 @@ No host synchronisation: the expert counts come from `scatter_add_` over E
 bins (not `bincount`, which reads the input's max on CUDA), and there is no
 boolean-mask indexing, `nonzero` or `.item()` in the layer.
 
-Combine. JAX adds each assignment's weighted row into its token with
-`.at[token_of].add`; here the weighted rows are put back in assignment
-order and summed over the k of each token, which is deterministic (a CUDA
-`index_add_` in bf16 adds in a varying order) and agrees with JAX to about
-1e-6 in float32.
+Combine (`combine`). JAX adds each assignment's weighted row into its
+token with `.at[token_of].add` over the sorted assignments, which XLA's CPU
+scatter does one update at a time in update order, rounding after each add.
+The port reproduces that order and rounding bit for bit: a token's K rows
+in ascending sorted position (ascending expert id), the first taken as is
+and the others added one at a time in the compute dtype. It is K - 1
+elementwise adds of (T, D), deterministic (a CUDA `index_add_` in bf16 adds
+in a varying order), with no host synchronisation.
 
 `routing_record()` keeps, while it is open, each call's routing: the top-k
 expert ids and, per token, the gap between the k-th and (k+1)-th router
@@ -71,6 +74,23 @@ def _route(m: MoECfg, xf: torch.Tensor, router: torch.Tensor):
     return logits, probs, gate, topi
 
 
+def combine(vals: torch.Tensor, w: torch.Tensor, order: torch.Tensor, T: int, K: int):
+    """JAX's `zeros((T, D)).at[order // K].add(vals * w[:, None])`, rounding for rounding.
+
+    vals (A, D) and w (A,) are in sorted order; sorted position i holds the
+    assignment order[i] of token order[i] // K. Each token's K weighted rows
+    are added in ascending sorted position, one add at a time in vals' dtype.
+    """
+    A = order.shape[0]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(A, device=order.device)  # the sorted position of each assignment
+    rows = (vals * w[:, None])[rank.view(T, K).sort(-1).values]  # (T, K, D)
+    y = rows[:, 0]
+    for j in range(1, K):
+        y = y + rows[:, j]
+    return y
+
+
 def _moe_group(cfg: ModelConfig, p: dict, xf: torch.Tensor, C: int, stats: bool):
     """Dispatch, expert products and combine for one token group. xf: (T, D)."""
     m = cfg.moe
@@ -104,9 +124,7 @@ def _moe_group(cfg: ModelConfig, p: dict, xf: torch.Tensor, C: int, stats: bool)
 
     vals = out[sorted_e, slot]  # (A, D); a dropped assignment reads the zeros row
     w = (gate.reshape(A)[order] * keep).to(dt)
-    contrib = torch.empty_like(vals)
-    contrib[order] = vals * w[:, None]  # back in assignment order: token-major, k-minor
-    y = contrib.view(T, K, D).sum(1)
+    y = combine(vals, w, order, T, K)
     if not stats:
         return y, None
     return y, {

@@ -5,7 +5,10 @@ JAX pytree (`embed/tok`, `layers/attn/wq`, ...). The per-layer weights stay
 STACKED, `(L, ...)`, exactly as JAX's scan-over-layers keeps them; the model
 loops over `layer_params(params, i)`, which takes views, so nothing is copied.
 An MoE config's leading dense layers are not stacked: `head_layers/"0"/...`,
-as in JAX, and `layers` then stacks the remaining `L - first_k_dense`.
+as in JAX, and `layers` then stacks the remaining `L - first_k_dense`. A
+hybrid (zamba2) stacks its L Mamba2 layers `{ln1, mamba}` and keeps the one
+shared attention + MLP block unstacked under `shared`; an RWKV6 config
+stacks its L layers `{ln1, tm, ln2, cm}`.
 Every weight keeps the `x @ W` orientation, `(in, out)`, so no transpose is
 needed anywhere.
 
@@ -33,23 +36,26 @@ class PD:
     """Parameter definition: shape, initializer, dtype override."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | constant
     stddev: float = 0.02
     dtype: torch.dtype | None = None
+    constant: float = 0.0
 
 
-FAMILIES = ("dense", "vlm", "audio", "moe")  # the families of the dense and MoE decoders
+FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "ssm")
 
 
-def _norm_defs(cfg: ModelConfig, *lead: int) -> dict:
-    """A norm's gains (and LayerNorm's bias), fp32, with optional leading dims."""
+def _norm_defs(cfg: ModelConfig, *lead: int, kind: str | None = None) -> dict:
+    """A norm's gains (and LayerNorm's bias), fp32, with optional leading dims; the
+    norm is `cfg.norm` unless `kind` names one."""
     f32 = torch.float32
-    if cfg.norm == "rmsnorm":
+    kind = kind or cfg.norm
+    if kind == "rmsnorm":
         return {"scale": PD((*lead, cfg.d_model), init="ones", dtype=f32)}
-    if cfg.norm == "layernorm":
+    if kind == "layernorm":
         return {"scale": PD((*lead, cfg.d_model), init="ones", dtype=f32),
                 "bias": PD((*lead, cfg.d_model), init="zeros", dtype=f32)}
-    raise ValueError(f"unknown norm {cfg.norm!r}")
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def _mlp_defs(cfg: ModelConfig, ff: int, *lead: int) -> dict:
@@ -100,6 +106,61 @@ def _layer_defs(cfg: ModelConfig, moe_layer: bool, *lead: int) -> dict:
     return d
 
 
+def _mamba2_defs(cfg: ModelConfig, *lead: int) -> dict:
+    """`repro.models.mamba2.mamba2_defs`: the in-projection to (z, x, B, C, dt), the
+    depthwise conv, and the float32 decay, skip, dt bias and gated-norm gains."""
+    s, D, f32 = cfg.ssm, cfg.d_model, torch.float32
+    d_inner = s.expand * D
+    H = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    return {
+        "w_in": PD((*lead, D, 2 * d_inner + 2 * s.n_groups * s.d_state + H)),
+        "conv_w": PD((*lead, conv_dim, s.conv_width), stddev=0.1),
+        "conv_b": PD((*lead, conv_dim), init="zeros"),
+        "a_log": PD((*lead, H), init="constant", constant=0.5, dtype=f32),
+        "d_skip": PD((*lead, H), init="ones", dtype=f32),
+        "dt_bias": PD((*lead, H), init="zeros", dtype=f32),
+        "norm": PD((*lead, d_inner), init="ones", dtype=f32),
+        "w_out": PD((*lead, d_inner, D)),
+    }
+
+
+def _rwkv6_layer_defs(cfg: ModelConfig, *lead: int) -> dict:
+    """`repro.models.rwkv6.rwkv6_defs` with the layer's two norms, which are
+    LayerNorm whatever `cfg.norm` says (`transformer.py::_rwkv_layer_defs`)."""
+    s, D, F, f32 = cfg.ssm, cfg.d_model, cfg.d_ff, torch.float32
+    H, k, r = D // s.head_dim, s.mix_dim, s.decay_lora
+    ln = _norm_defs(cfg, *lead, kind="layernorm")
+    return {
+        "ln1": ln,
+        "tm": {
+            "maa_x": PD((*lead, D), init="zeros"),
+            "maa": PD((*lead, 5, D), init="zeros"),  # w, k, v, r, g base mixes
+            "mix_w1": PD((*lead, D, 5 * k)),
+            "mix_w2": PD((*lead, 5, k, D)),
+            "w0": PD((*lead, D), init="constant", constant=-4.0, dtype=f32),
+            "w_a": PD((*lead, D, r)),
+            "w_b": PD((*lead, r, D)),
+            "wr": PD((*lead, D, D)),
+            "wk": PD((*lead, D, D)),
+            "wv": PD((*lead, D, D)),
+            "wg": PD((*lead, D, D)),
+            "wo": PD((*lead, D, D)),
+            "u": PD((*lead, H, s.head_dim), dtype=f32),  # the current token's bonus
+            "ln_x": {"scale": PD((*lead, D), init="ones", dtype=f32),
+                     "bias": PD((*lead, D), init="zeros", dtype=f32)},
+        },
+        "ln2": dict(ln),
+        "cm": {
+            "mu_k": PD((*lead, D), init="zeros"),
+            "mu_r": PD((*lead, D), init="zeros"),
+            "wk": PD((*lead, D, F)),
+            "wv": PD((*lead, F, D)),
+            "wr": PD((*lead, D, D)),
+        },
+    }
+
+
 def n_head_layers(cfg: ModelConfig) -> int:
     """Leading dense layers, kept unstacked under `head_layers` (deepseek's layer 0)."""
     return cfg.moe.first_k_dense if cfg.moe else 0
@@ -110,7 +171,9 @@ def param_defs(cfg: ModelConfig) -> dict:
 
     The first `n_head_layers` layers are dense and sit under `head_layers`,
     keyed "0", "1", ... and not stacked; the rest are stacked under `layers`,
-    and are MoE layers when the config has an MoE block.
+    and are MoE layers when the config has an MoE block. A hybrid stacks its
+    Mamba2 layers and adds the unstacked `shared` block; an RWKV6 config
+    stacks its RWKV6 layers.
     """
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
@@ -119,9 +182,16 @@ def param_defs(cfg: ModelConfig) -> dict:
         "embed": {"tok": PD((cfg.vocab_size, cfg.d_model))},
         "final_norm": _norm_defs(cfg),
     }
-    if n_head:
-        defs["head_layers"] = {str(i): _layer_defs(cfg, False) for i in range(n_head)}
-    defs["layers"] = _layer_defs(cfg, cfg.moe is not None, cfg.num_layers - n_head)
+    if cfg.family == "hybrid":
+        L = cfg.num_layers
+        defs["layers"] = {"ln1": _norm_defs(cfg, L), "mamba": _mamba2_defs(cfg, L)}
+        defs["shared"] = _layer_defs(cfg, False)  # one attn + MLP block, applied repeatedly
+    elif cfg.family == "ssm":
+        defs["layers"] = _rwkv6_layer_defs(cfg, cfg.num_layers)
+    else:
+        if n_head:
+            defs["head_layers"] = {str(i): _layer_defs(cfg, False) for i in range(n_head)}
+        defs["layers"] = _layer_defs(cfg, cfg.moe is not None, cfg.num_layers - n_head)
     if not cfg.tie_embeddings:
         defs["lm_head"] = {"w": PD((cfg.d_model, cfg.vocab_size))}
     return defs
@@ -162,6 +232,8 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
             t = torch.ones(pd.shape, dtype=dtype, device=device)
         elif pd.init == "zeros":
             t = torch.zeros(pd.shape, dtype=dtype, device=device)
+        elif pd.init == "constant":
+            t = torch.full(pd.shape, pd.constant, dtype=dtype, device=device)
         else:
             g = torch.Generator(device=device)
             g.manual_seed(zlib.crc32(f"{seed}/{path}".encode()) & 0x7FFFFFFF)

@@ -1,27 +1,43 @@
-"""Model assembly of the decoder: [norm -> GQA attn -> norm -> MLP or MoE] x L.
+"""Model assembly of every family of `repro.models.transformer`, for inference.
 
-Port of the dense, vlm, audio and moe families of `repro.models.transformer`
-for inference (`forward`, `loss`, `prefill`, `init_cache`, `decode_step`);
-hybrid and RWKV come in later slices, and the backward with training. A
-Python loop over the layers replaces `lax.scan`, over views of the stacked
-`(L, ...)` parameters. In an MoE config the MLP of each stacked layer is the
-routed MoE layer (`models/moe.py`), and the first `first_k_dense` layers are
-dense and unstacked (`head_layers`, deepseek's layer 0), run before them.
+  dense / vlm / audio : [norm -> GQA attn -> norm -> MLP] x L
+  moe                 : the MLP of each stacked layer is the routed MoE layer
+                        (`models/moe.py`); the first `first_k_dense` layers are
+                        dense and unstacked (`head_layers`, deepseek's layer 0)
+  ssm (rwkv6)         : [LayerNorm -> time mix -> LayerNorm -> channel mix] x L
+  hybrid (zamba2)     : a Mamba2 backbone with one shared attn + MLP block
+                        applied before every `attn_every` Mamba2 layers
 
-The cache is a dict of JAX's structure, `{"head_layers": {"0": {"kv": {"k",
-"v"}}}, "layers": {"kv": {"k", "v"}}, "pos"}`, with the stacked `k`/`v`
-`(L - first_k_dense, B, W, Hkv, dh)`, a head layer's `(B, W, Hkv, dh)`, and
-`pos` a host int; `head_layers` is there only when the config has head
-layers. It is updated IN PLACE: `decode_step` writes into the tensors it is
-given and returns the same dict (JAX donates the cache buffers to the same
-effect).
+`forward`, `loss`, `prefill`, `init_cache` and `decode_step`; the backward
+comes with training. A Python loop over the blocks replaces `lax.scan`, over
+views of the stacked `(L, ...)` parameters. The hybrid splits its L layers
+as JAX's `_hybrid_split` does: n_seg = L // attn_every segments of [shared
+block, attn_every Mamba2 layers], then, if layers are left, one more shared
+block and the tail of n_tail = L - n_seg * attn_every layers. The shared
+block is a dense layer with its own weights (`params["shared"]`), so it runs
+through `_apply_dense_layer`, with a KV cache of its own at every application.
 
-`Model(cfg, kernels=True)` runs the pre-norms, the fused residual-add norm,
+The cache is a dict of JAX's structure, so that caches compare leaf by leaf:
+- dense and MoE: `{"head_layers": {"0": {"kv": {"k", "v"}}}, "layers":
+  {"kv": {"k", "v"}}, "pos"}`, the stacked `k`/`v` `(L - first_k_dense, B, W,
+  Hkv, dh)`, a head layer's `(B, W, Hkv, dh)`; `head_layers` only when the
+  config has head layers;
+- ssm: `{"layers": {"tm": {"wkv", "shift"}, "cm": {"shift"}}, "pos"}`, each
+  leaf `(L, B, ...)`;
+- hybrid: `{"seg": {"shared": {"k", "v"} (n_seg, B, ...), "mamba": {"ssd",
+  "conv"} (n_seg, attn_every, B, ...)}, "tail": {"shared": {"k", "v"} (B, ...),
+  "mamba": ({"ssd", "conv"} (B, ...), ...)}, "pos"}`, `seg` and `tail` only
+  where there are segments and tail layers.
+`pos` is a host int. `SLOT_AXES` names each part's slot axis (the serving
+engine splices admitted slots on it). The cache is updated IN PLACE:
+`decode_step` writes into the tensors it is given and returns the same dict
+(JAX donates the cache buffers to the same effect).
+
+`Model(cfg, kernels=True)` runs the RMSNorms, the fused residual-add norm,
 the qk-norms and both attentions through the port's CUDA kernels (their
-plain versions on CPU tensors). LayerNorm has no kernel: on layernorm
-configs the norms are plain PyTorch on either path. `kernels=False` runs
-plain PyTorch on any device: the oracle the kernel path is held to on the
-card.
+plain versions on CPU tensors). LayerNorm, Mamba2 and RWKV6 have no kernel:
+plain PyTorch on either path, as in JAX. `kernels=False` runs plain PyTorch
+on any device: the oracle the kernel path is held to on the card.
 """
 
 from __future__ import annotations
@@ -31,15 +47,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
                                        n_head_layers)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
-# where the ROADMAP queues the families the port does not run yet
-NOT_PORTED = {"hybrid": "A3 (Mamba2 + hybrid)", "ssm": "A3/A4 (Mamba2, RWKV6)"}
+# the slot axis of every cache leaf, by the part of the cache it is in
+SLOT_AXES = {"layers": 1, "head_layers": 0, "seg/shared": 1, "seg/mamba": 2, "tail": 0}
 
 
 def zero_aux(device) -> dict:
@@ -72,18 +88,90 @@ def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
     return x + apply_mlp(p["mlp"], h, cfg.act), None
 
 
+def _fill(cache: dict, state: dict) -> None:
+    """Copy a sequence path's final state into the cache's views of the same structure."""
+    for k, v in state.items():
+        if isinstance(v, dict):
+            _fill(cache[k], v)
+        else:
+            cache[k].copy_(v)
+
+
+def _apply_mamba_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
+    """x + Mamba2(norm(x)): (x, None). Prefill fills `cache` {"ssd", "conv"}; decode
+    advances it."""
+    h = _norm(p["ln1"], x, kernels)
+    if mode == "decode":
+        return x + mamba2.mamba2_decode(cfg, p["mamba"], h, cache), None
+    m, state = mamba2.mamba2_seq(cfg, p["mamba"], h)
+    if mode == "prefill":
+        _fill(cache, state)
+    return x + m, None
+
+
+def _apply_rwkv_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
+    """Time mix, then channel mix, each after its LayerNorm: (x, None)."""
+    h = apply_norm(p["ln1"], x)
+    if mode == "decode":
+        x = x + rwkv6.time_mix_decode(cfg, p["tm"], h, cache["tm"])
+        h = apply_norm(p["ln2"], x)
+        return x + rwkv6.channel_mix_decode(cfg, p["cm"], h, cache["cm"]), None
+    a, tm = rwkv6.time_mix_seq(cfg, p["tm"], h)
+    x = x + a
+    c, cm = rwkv6.channel_mix_seq(cfg, p["cm"], apply_norm(p["ln2"], x))
+    if mode == "prefill":
+        _fill(cache, {"tm": tm, "cm": cm})
+    return x + c, None
+
+
+def _at(tree, *idx):
+    """Views of every leaf of a cache tree at the leading index `idx`."""
+    return {k: _at(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
+
+
+def _stacked(tree: dict, *lead: int) -> dict:
+    """Zeros of the tree's shapes and dtypes with leading dims `lead`."""
+    return {k: _stacked(v, *lead) if isinstance(v, dict)
+            else torch.zeros((*lead, *v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
+def cache_leaves(cache: dict):
+    """(path, tensor, slot axis) of every tensor of a cache (`SLOT_AXES`)."""
+    def walk(tree, path):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            p = f"{path}/{k}" if path else str(k)
+            if isinstance(v, (dict, tuple)):
+                yield from walk(v, p)
+            elif isinstance(v, torch.Tensor):
+                part = next(a for a in SLOT_AXES if p == a or p.startswith(a + "/"))
+                yield p, v, SLOT_AXES[part]
+    yield from walk({k: v for k, v in cache.items() if k != "pos"}, "")
+
+
 class Model:
     """Functional model wrapper: params are explicit dicts of tensors."""
 
     def __init__(self, cfg: ModelConfig, *, kernels: bool = True):
         if cfg.family not in FAMILIES:
-            item = NOT_PORTED.get(cfg.family, "A")
-            raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                                      f"(ROADMAP {item})")
+            raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r}")
+        kind = cfg.ssm.kind if cfg.ssm is not None else None
+        # JAX assembles a hybrid from Mamba2 layers and an ssm config from RWKV6 layers only
+        if (cfg.family == "hybrid" and (kind != "mamba2" or not cfg.attn_every)) or (
+                cfg.family == "ssm" and kind != "rwkv6"):
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} with SSM block {kind!r} and attn_every "
+                f"{cfg.attn_every!r} is not a stack JAX builds")
         self.cfg = cfg
         self.kernels = kernels
+        self.is_hybrid = cfg.family == "hybrid"
+        self.is_rwkv = kind == "rwkv6"
         self.n_head = n_head_layers(cfg)
         self.n_scan = cfg.num_layers - self.n_head
+        if self.is_hybrid:
+            self.n_seg = cfg.num_layers // cfg.attn_every
+            self.n_tail = cfg.num_layers - self.n_seg * cfg.attn_every
 
     def init(self, seed: int, device: torch.device) -> dict:
         return init_params(self.cfg, seed, device)
@@ -91,16 +179,31 @@ class Model:
     def param_count(self) -> int:
         return count_params(self.cfg)
 
-    def _layers(self, params: dict) -> list[dict]:
-        """Each layer's parameters in order: the head layers, then views of the stacked."""
-        return ([params["head_layers"][str(i)] for i in range(self.n_head)]
-                + [layer_params(params, i) for i in range(self.n_scan)])
+    def _blocks(self, params: dict, cache: dict | None = None) -> list:
+        """(apply function, parameters, cache views or None) of every block in order."""
+        if self.is_hybrid:
+            return self._hybrid_blocks(params, cache)
+        layer = _apply_rwkv_layer if self.is_rwkv else _apply_dense_layer
+        stacked = cache and cache["layers"]
+        if stacked and not self.is_rwkv:  # an attention layer's cache is its {"k", "v"}
+            stacked = stacked["kv"]
+        out = [(_apply_dense_layer, params["head_layers"][str(i)],
+                cache and cache["head_layers"][str(i)]["kv"]) for i in range(self.n_head)]
+        return out + [(layer, layer_params(params, i), stacked and _at(stacked, i))
+                      for i in range(self.n_scan)]
 
-    def _caches(self, cache: dict) -> list[dict]:
-        """Each layer's {"k", "v"} in the same order (views of the stacked leaves)."""
-        kv = cache["layers"]["kv"]
-        return ([cache["head_layers"][str(i)]["kv"] for i in range(self.n_head)]
-                + [{"k": kv["k"][i], "v": kv["v"][i]} for i in range(self.n_scan)])
+    def _hybrid_blocks(self, params: dict, cache: dict | None) -> list:
+        k, shared = self.cfg.attn_every, params["shared"]
+        out = []
+        for i in range(self.n_seg):
+            out.append((_apply_dense_layer, shared, cache and _at(cache["seg"]["shared"], i)))
+            out += [(_apply_mamba_layer, layer_params(params, i * k + j),
+                     cache and _at(cache["seg"]["mamba"], i, j)) for j in range(k)]
+        if self.n_tail:
+            out.append((_apply_dense_layer, shared, cache and cache["tail"]["shared"]))
+            out += [(_apply_mamba_layer, layer_params(params, self.n_seg * k + j),
+                     cache and cache["tail"]["mamba"][j]) for j in range(self.n_tail)]
+        return out
 
     def _inputs_to_hidden(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
@@ -119,13 +222,13 @@ class Model:
 
         `aux` holds JAX's MoE metrics, summed over the stacked layers and
         divided by their number (the head layers are dense and add nothing),
-        all zero for the dense families. Inference only: no remat, and the
+        all zero for the other families. Inference only: no remat, and the
         kernels have no backward yet.
         """
         x = self._inputs_to_hidden(params, batch)
         aux = zero_aux(x.device)
-        for p in self._layers(params):
-            x, a = _apply_dense_layer(self.cfg, p, x, "forward", kernels=self.kernels)
+        for apply, p, _ in self._blocks(params):
+            x, a = apply(self.cfg, p, x, "forward", kernels=self.kernels)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in AUX_KEYS}
         aux = {k: v / max(self.n_scan, 1) for k, v in aux.items()}
@@ -163,14 +266,28 @@ class Model:
 
     def init_cache(self, batch_size: int, max_len: int, device) -> dict:
         """Zeroed cache for decode-from-scratch."""
-        one = attn.init_attn_cache(self.cfg, batch_size, max_len, device)
-        kv = {k: torch.zeros((self.n_scan, *t.shape), dtype=t.dtype, device=device)
-              for k, t in one.items()}
-        cache = {"layers": {"kv": kv}, "pos": 0}
-        if self.n_head:
-            cache["head_layers"] = {
-                str(i): {"kv": attn.init_attn_cache(self.cfg, batch_size, max_len, device)}
-                for i in range(self.n_head)}
+        cfg = self.cfg
+        if self.is_hybrid:
+            a1 = attn.init_attn_cache(cfg, batch_size, max_len, device)
+            m1 = mamba2.init_mamba2_state(cfg, batch_size, device)
+            cache = {}
+            if self.n_seg:
+                cache["seg"] = {"shared": _stacked(a1, self.n_seg),
+                                "mamba": _stacked(m1, self.n_seg, cfg.attn_every)}
+            if self.n_tail:
+                cache["tail"] = {"shared": a1, "mamba": tuple(
+                    mamba2.init_mamba2_state(cfg, batch_size, device) for _ in range(self.n_tail))}
+        elif self.is_rwkv:
+            cache = {"layers": _stacked(rwkv6.init_rwkv6_state(cfg, batch_size, device),
+                                        self.n_scan)}
+        else:
+            one = {"kv": attn.init_attn_cache(cfg, batch_size, max_len, device)}
+            cache = {"layers": _stacked(one, self.n_scan)}
+            if self.n_head:
+                cache["head_layers"] = {
+                    str(i): {"kv": attn.init_attn_cache(cfg, batch_size, max_len, device)}
+                    for i in range(self.n_head)}
+        cache["pos"] = 0
         return cache
 
     def prefill(self, params: dict, batch: dict, max_len: int):
@@ -178,9 +295,8 @@ class Model:
         x = self._inputs_to_hidden(params, batch)
         B, S, _ = x.shape
         cache = self.init_cache(B, max_len, x.device)
-        for p, c in zip(self._layers(params), self._caches(cache)):
-            x, _ = _apply_dense_layer(self.cfg, p, x, "prefill", c, max_len=max_len,
-                                      kernels=self.kernels)
+        for apply, p, c in self._blocks(params, cache):
+            x, _ = apply(self.cfg, p, x, "prefill", c, max_len=max_len, kernels=self.kernels)
         x = _norm(params["final_norm"], x[:, -1].contiguous(), self.kernels)
         cache["pos"] = S
         return self._head(params, x), cache
@@ -189,8 +305,8 @@ class Model:
         """One autoregressive step. tokens: (B, 1) -> (logits (B, V) fp32, cache)."""
         pos = cache["pos"]
         x = embed_lookup(params["embed"], tokens, self.cfg.compute_dtype)
-        for p, c in zip(self._layers(params), self._caches(cache)):
-            x, _ = _apply_dense_layer(self.cfg, p, x, "decode", c, pos=pos, kernels=self.kernels)
+        for apply, p, c in self._blocks(params, cache):
+            x, _ = apply(self.cfg, p, x, "decode", c, pos=pos, kernels=self.kernels)
         x = _norm(params["final_norm"], x[:, 0].contiguous(), self.kernels)
         cache["pos"] = pos + 1
         return self._head(params, x), cache

@@ -4,9 +4,17 @@ Port of `repro.serve.engine`. A fixed decode batch of `slots`; each finished
 request frees its slot, queued prompts are prefilled into free slots and
 their caches spliced in. The cache is updated in place across decode steps.
 
+An admission splices every cache leaf on its slot axis, which the cache's
+structure gives (`transformer.SLOT_AXES`): axis 1 of the stacked layers and
+of a hybrid's per-segment attention caches, axis 2 of its per-segment Mamba2
+states, axis 0 of a head layer's and of the hybrid tail's leaves. JAX's
+splice guesses the axis from the leaf's shape and cannot splice a hybrid
+cache.
+
 Known behaviour kept exactly, because token parity with the JAX engine
 depends on it: the cache position is a single scalar, prompts are
-left-padded with token 0 and the padding is attended, and an admission sets
+left-padded with token 0 and the padding is attended (and runs through the
+recurrence of the Mamba2 and RWKV6 layers), and an admission sets
 the position to max(old, new), so a later-admitted prompt is misaligned.
 
 Greedy decoding is `argmax` (first index on ties, as `jnp.argmax`). With
@@ -22,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, cache_leaves
 
 
 @dataclass
@@ -45,6 +53,7 @@ class ServeEngine:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.decode_steps = 0  # decode iterations of the last serve() call
+        self.admissions = 0  # prefills of the last serve() call
         # host seconds of the last serve() call, each span ending in a device sync
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
@@ -86,7 +95,7 @@ class ServeEngine:
         active: list[Request | None] = [None] * self.slots
         cache = None
         logits_np = None
-        self.decode_steps = 0
+        self.decode_steps = self.admissions = 0
         self.prefill_seconds = self.decode_seconds = 0.0
         while pending or any(a is not None for a in active):
             admit = []
@@ -98,6 +107,7 @@ class ServeEngine:
                 t0 = time.perf_counter()
                 cache, logits_np = self._admit(admit, active, cache, logits_np)
                 self.prefill_seconds += time.perf_counter() - t0
+                self.admissions += 1
             live = [s for s in range(self.slots) if active[s] is not None]
             if not live:
                 break
@@ -136,14 +146,12 @@ class ServeEngine:
             return new_cache, new_logits
         mask = np.zeros((B,), bool)
         mask[slots_to_fill] = True
-        sel = torch.from_numpy(mask).to(self.device)
-        # stacked-layer leaves are (L, B, ...), a head layer's (B, ...): splice the
-        # admitted slots in place
-        for name, old in cache["layers"]["kv"].items():
-            old[:, sel] = new_cache["layers"]["kv"][name][:, sel]
-        for i, layer in cache.get("head_layers", {}).items():
-            for name, old in layer["kv"].items():
-                old[sel] = new_cache["head_layers"][i]["kv"][name][sel]
+        sel = torch.as_tensor(slots_to_fill, device=self.device)
+        # splice the admitted slots in place, each leaf on the slot axis that its
+        # place in the cache gives it (never guessed from its shape)
+        new = {path: t for path, t, _ in cache_leaves(new_cache)}
+        for path, old, axis in cache_leaves(cache):
+            old.index_copy_(axis, sel, new[path].index_select(axis, sel))
         cache["pos"] = max(cache["pos"], new_cache["pos"])  # slots decode in lockstep
         if logits_np is not None:
             logits_np[mask] = new_logits[mask]

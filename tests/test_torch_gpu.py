@@ -24,8 +24,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
 from repro_torch.configs import get_config
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.params import init_params, layer_params
+from repro_torch.models.transformer import Model
 
 pytestmark = pytest.mark.gpu
 
@@ -278,3 +279,85 @@ def test_moe_layer_makes_no_host_sync(dev, dtype):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(y.float()).all() and torch.equal(y, y2)
     assert 0 < float(aux["moe_drop_frac"]) < 1
+
+
+def _zamba2(dtype="float32", **over):
+    """zamba2 at `reduced(**over)` with 2 groups, and its parameters on the CPU."""
+    cfg = get_config("zamba2_1p2b").reduced(dtype=dtype, param_dtype=dtype, **over)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, n_groups=2))
+    return cfg, init_params(cfg, 0, torch.device("cpu"))
+
+
+def _state_tol(ref):
+    """The float32 bar for a recurrent state, whose entries sum many products: 2e-5
+    relative to its largest entry where that passes one."""
+    return TOL[torch.float32] * max(1.0, ref.abs().max().item())
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def test_mamba2_layer_on_cuda_matches_cpu(dev):
+    """Mamba2 (plain PyTorch, no kernel in JAX either) on the card against the CPU,
+    float32: the sequence path past a padded chunk (S 300), its states, and 3
+    decode steps from them."""
+    cfg, params = _zamba2()
+    p = layer_params(params, 0)["mamba"]
+    x = 0.5 * torch.randn(2, 303, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    y, st = mamba2.mamba2_seq(cfg, p, x[:, :300])
+    yc, stc = mamba2.mamba2_seq(cfg, _to(p, dev), x[:, :300].to(dev))
+    assert _err(yc.cpu(), y) < TOL[torch.float32]
+    for k in ("ssd", "conv"):
+        assert _err(stc[k].cpu(), st[k]) < _state_tol(st[k]), k
+    for t in range(300, 303):
+        d = mamba2.mamba2_decode(cfg, p, x[:, t:t + 1], st)
+        dc = mamba2.mamba2_decode(cfg, _to(p, dev), x[:, t:t + 1].to(dev), stc)
+        assert _err(dc.cpu(), d) < TOL[torch.float32]
+    assert _err(stc["ssd"].cpu(), st["ssd"]) < _state_tol(st["ssd"])
+
+
+def test_rwkv6_layer_on_cuda_matches_cpu(dev):
+    """RWKV6's time mix and channel mix (plain PyTorch) on the card against the CPU,
+    float32: the sequence path past a padded chunk (S 40), then 2 decode steps."""
+    cfg = get_config("rwkv6_7b").reduced()
+    p = layer_params(init_params(cfg, 0, torch.device("cpu")), 0)
+    x = torch.randn(2, 42, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    for part, seq, dec in (("tm", rwkv6.time_mix_seq, rwkv6.time_mix_decode),
+                           ("cm", rwkv6.channel_mix_seq, rwkv6.channel_mix_decode)):
+        y, st = seq(cfg, p[part], x[:, :40])
+        yc, stc = seq(cfg, _to(p[part], dev), x[:, :40].to(dev))
+        assert _err(yc.cpu(), y) < TOL[torch.float32], part
+        st, stc = _clone(st), _clone(stc)
+        for t in (40, 41):
+            d = dec(cfg, p[part], x[:, t:t + 1], st)
+            dc = dec(cfg, _to(p[part], dev), x[:, t:t + 1].to(dev), stc)
+            assert _err(dc.cpu(), d) < TOL[torch.float32], part
+        for k in st:
+            assert _err(stc[k].cpu(), st[k]) < _state_tol(st[k]), (part, k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrent_decode_steps_make_no_host_sync(dev, dtype):
+    """Under `set_sync_debug_mode("error")` any call that waits for the card
+    raises: a whole zamba2 decode step (a segment and a tail: the Mamba2 layers,
+    the shared block through the norm and attention kernels, the head) and a
+    whole rwkv6 decode step make none."""
+    zcfg, zp = _zamba2(dtype, num_layers=3)
+    rcfg = get_config("rwkv6_7b").reduced(dtype=dtype, param_dtype=dtype)
+    rp = init_params(rcfg, 0, torch.device("cpu"))
+    toks = torch.randint(0, zcfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(0))
+    for cfg, p in ((zcfg, zp), (rcfg, rp)):
+        model, p, t = Model(cfg), _to(p, dev), toks.to(dev)
+        _, cache = model.prefill(p, {"tokens": t[:, :20]}, 24)
+        n0 = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(20, 23):
+                logits, cache = model.decode_step(p, cache, t[:, i:i + 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(logits).all() and cache["pos"] == 23
+        blocks = 2 if cfg.family == "hybrid" else 0  # zamba2's shared block at both applications
+        assert build.LAUNCHES["decode_attention"] - n0["decode_attention"] == 3 * blocks

@@ -75,9 +75,16 @@ def test_port_prefill_decode_matches_jax_forward(setup):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_model_refuses_unported_families(family):
+    """The recurrent families run only with the block JAX builds them from (RWKV6
+    for ssm, Mamba2 and a shared-block period for hybrid): a dense config
+    relabelled, or a pure-Mamba2 ssm stack, is refused, not run as another model."""
     cfg = dataclasses.replace(get_config("qwen3_14b").reduced(), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="not a stack JAX builds"):
         Model(cfg)
+    other = "rwkv6_7b" if family == "hybrid" else "zamba2_1p2b"
+    with pytest.raises(NotImplementedError, match="not a stack JAX builds"):
+        Model(dataclasses.replace(get_config(other).reduced(), family=family, attn_every=2))
+    Model(get_config("zamba2_1p2b" if family == "hybrid" else "rwkv6_7b"))
 
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "arctic_480b"])

@@ -26,14 +26,17 @@ PARAM_COUNTS = {
     "pixtral_12b": 12_247_782_400,
     "deepseek_moe_16b": 16_375_728_128,
     "arctic_480b": 476_850_275_328,
+    "zamba2_1p2b": 1_180_459_648,
+    "rwkv6_7b": 7_577_018_368,
 }
 
 
 def test_registry_holds_the_dense_family():
-    assert sorted(ARCHS) == sorted(PARAM_COUNTS)
-    assert ALIASES == {k: v for k, v in JAX_ALIASES.items() if v in ARCHS}
+    """Every config of the JAX package is in the port's registry, with JAX's aliases."""
+    assert sorted(ARCHS) == sorted(PARAM_COUNTS) == sorted(JAX_ALIASES.values())
+    assert ALIASES == JAX_ALIASES
     with pytest.raises(ValueError, match="not ported"):
-        get_config("zamba2-1.2b")
+        get_config("llama-405b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -43,6 +46,9 @@ def test_config_fields_match_jax(reduced, arch):
     if reduced:
         ours, theirs = ours.reduced(), theirs.reduced()
     for f in dataclasses.fields(ours):
+        if f.name == "ssm" and ours.ssm is not None:  # two SSMCfg types: field by field
+            assert dataclasses.asdict(ours.ssm) == dataclasses.asdict(theirs.ssm)
+            continue
         if f.name == "moe" and ours.moe is not None:  # two MoECfg types: field by field
             for g in dataclasses.fields(ours.moe):
                 assert getattr(ours.moe, g.name) == getattr(theirs.moe, g.name), g.name
@@ -92,20 +98,33 @@ def test_from_jax_round_trips_bit_equal(dtype, arch):
             np.testing.assert_array_equal(t.numpy(), a, path)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b", "deepseek_moe_16b"])
+# leaves that JAX initialises to a constant (zeros, ones or another value)
+CONSTANT_LEAVES = ("bias", "scale", "_norm", "conv_b", "a_log", "d_skip", "dt_bias", "mamba/norm",
+                   "w0", "maa_x", "maa", "mu_k", "mu_r")
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "starcoder2_3b", "deepseek_moe_16b", "zamba2_1p2b",
+                                  "rwkv6_7b"])
 def test_own_init_is_seeded_per_leaf(arch):
     cfg = get_config(arch).reduced()
     a, b = tparams.init_params(cfg, 0, CPU), tparams.init_params(cfg, 0, CPU)
     c = tparams.init_params(cfg, 1, CPU)
+    jdefs = dict(_leaves(jax.tree.map(np.asarray, JaxModel(jax_get_config(arch).reduced()).init(
+        jax.random.PRNGKey(0)))))
     for (path, x), (_, y), (_, z) in zip(_leaves(a), _leaves(b), _leaves(c)):
         assert torch.equal(x, y), path
-        if path.endswith("bias"):  # LayerNorm's bias starts at zero, as JAX's
-            assert not x.any(), path
-        elif not path.endswith("scale") and not path.endswith("_norm"):
+        assert tuple(x.shape) == jdefs[path].shape, path
+        if path.endswith(CONSTANT_LEAVES):  # the same constants as JAX's
+            np.testing.assert_array_equal(x.numpy(), jdefs[path], path)
+        elif path.endswith("conv_w"):  # Mamba2's conv weights: stddev 0.1
+            assert not torch.equal(x, z) and abs(x.float().std().item() - 0.1) < 0.02, path
+        else:
             assert not torch.equal(x, z), path
             assert abs(x.float().std().item() - 0.02) < 0.005, path
     # leaves of one shape draw from their own generators
-    assert not torch.equal(a["layers"]["attn"]["wk"], a["layers"]["attn"]["wv"])
+    top, block = {"zamba2_1p2b": ("shared", "attn"), "rwkv6_7b": ("layers", "tm")}.get(
+        arch, ("layers", "attn"))
+    assert not torch.equal(a[top][block]["wk"], a[top][block]["wv"])
     assert a["lm_head"]["w"].dtype == torch.float32
     if cfg.moe is not None:  # the router is held in float32, as JAX's
         assert a["layers"]["moe"]["router"].dtype == torch.float32
