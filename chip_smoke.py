@@ -42,9 +42,25 @@ Phases, each of which fails the run with a non-zero exit:
   6. trace   - after each config's serve, decode steps of that model at its
                serve shape, timed and traced with torch.profiler: device
                busy time, idle share, top kernels (and the device items of
-               the MoE layer, of the Mamba2 layers and of the RWKV6 layers).
-Then a table of the serve numbers, one JSON line of the kernels and, last,
-the JSON result line. Needs one card; imports nothing of JAX.
+               the MoE layer, of the Mamba2 layers and of the RWKV6 layers);
+  7. train   - the training path: (after phase 3) the two backward kernels,
+               flash attention's and RMSNorm's, against their plain versions
+               (BWD_BAR_NOTE) at h2o-danube's training shape (q (2, 32, 6144,
+               80), window 4096), qwen3-14b's and dh 64 at G 1, and sweeps,
+               with the forward kernel's LSE, each timed beside its plain
+               version and PyTorch's backward (SDPA's, F.rms_norm's); (after
+               phase 6) 2-layer train parity at full width (TRAIN_PARITY,
+               TRAIN_NOTE) for danube at 6144 tokens and qwen3-14b at 2048,
+               the kernel path's gradients identical under remat none,
+               selective and full; a 2-layer danube Trainer resumed from a
+               checkpoint; and h2o-danube at full width and depth trained 6
+               steps through `launch.train.run` (TRAIN_RUN): step time,
+               tokens/s, MFU, peak memory, every kernel of the path launched;
+               then one such step traced (device busy time, idle share, top
+               kernels).
+Then a table of the serve numbers, one JSON line of the kernels (the four
+TPU kernels' ports and the two backward kernels) and, last, the JSON result
+line. Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -73,14 +89,22 @@ from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref, attention_ref,  # noqa: E402
+                                                     flash_attention_bwd_ref)
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref, rmsnorm_ref,  # noqa: E402
+                                             rmsnorm_residual_ref)
+from repro_torch.configs.base import ParallelConfig, TrainConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch.serve import run as serve_run  # noqa: E402
+from repro_torch.launch.train import run as train_run  # noqa: E402
 from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.models.params import layer_params  # noqa: E402
 from repro_torch.models.transformer import (Model, _apply_mamba_layer,  # noqa: E402
                                             _apply_rwkv_layer)
+from repro_torch.train.train_step import loss_and_grads  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
+from repro_torch.train.tree import paths  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense tensor-core bf16 FLOP/s (data sheet)
 PEAK_F32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
@@ -158,6 +182,36 @@ SERVE_TRAFFIC = {
 PARITY_LAYERS = {"zamba2_1p2b": 7}
 # ported configs that one card cannot hold, and why: phases 4-6 leave them out
 NOT_ON_ONE_CARD = {"arctic_480b": "~960 GB of bf16 experts: waits for distribution (ROADMAP A6)"}
+
+# the backward kernels of the training path (phase 7): not ports of TPU kernels,
+# since JAX computes both in jnp; `replaces` names that jnp counterpart
+TRAIN_KERNELS = {
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "none (no TPU kernel): jnp src/repro/models/flash_vjp.py:90 _bwd_rule"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
+                    "none (no TPU kernel): autodiff of src/repro/models/layers.py:35 apply_norm"),
+}
+# BWD_BAR_NOTE: the backward kernels against their plain versions on the same
+# inputs (the forward kernel's out and LSE): float32 max abs error <= 1e-4 x the
+# plain output's max |value| (sums over thousands of terms in another order);
+# bf16 relative error (norm of the difference over the norm of the plain output)
+# <= REL_TOL, as ATTN_BAR_NOTE's: both compute in float32 and round once.
+BWD_F32_TOL = 1e-4
+# TRAIN_NOTE: phase 7's 2-layer train parity holds the kernel path's loss and
+# every gradient leaf to the plain path in bf16, against twice the bf16 floor
+# (the plain bf16 path against the plain float32 path): per leaf by relative
+# error (norm of the difference over the norm of the float32 leaf); the loss by
+# its mean per-token CE, whose floor is the mean |CE difference| per token (a
+# mean moves by at most that, so the same triangle argument as phase_parity's
+# holds for it).
+TRAIN_PARITY = {"h2o_danube_1p8b": dict(batch=1, seq=6144), "qwen3_14b": dict(batch=1, seq=2048)}
+# the full-width, full-depth training run: SyntheticLM(32000, 6144, 2), 6 steps,
+# the first TRAIN_WARMUP of them left out of the step time
+TRAIN_RUN = dict(arch="h2o_danube_1p8b", batch=2, seq=6144, steps=6, remat="selective")
+TRAIN_WARMUP = 2
+# the kernels of the training path (h2o-danube: RMSNorm, no qk-norm)
+TRAIN_PATH = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_residual", "rmsnorm_bwd")
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:20"),
@@ -631,10 +685,13 @@ def phase_parity(dev, cfg, *, batch=2, prompt=None, steps=8, seed=0) -> dict:
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
     params = Model(cfg).init(seed, dev)
     params32 = cast_tree(params, torch.float32)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    # the plain paths attend densely, the O(S^2) oracle: their flash twin would need
+    # S to be a multiple of attn_chunk (as JAX's does), and danube's 4208 is not
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    cfg32 = dataclasses.replace(dense, dtype="float32", param_dtype="float32")
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt + steps))).to(dev)
-    variants = [("kernels", Model(cfg), params), ("plain", Model(cfg, kernels=False), params),
+    variants = [("kernels", Model(cfg), params), ("plain", Model(dense, kernels=False), params),
                 ("plain_fp32", Model(cfg32, kernels=False), params32)]
     if cfg.moe is not None:
         variants.append(("kernels_fp32", Model(cfg32), params32))
@@ -962,6 +1019,317 @@ def _tensors(tree: dict):
             yield v
 
 
+# -------------------------------------------------------------------- phase 7
+def _bwd_check(name, label, outs, refs, dt, rec) -> None:
+    """Backward outputs against their plain versions (BWD_BAR_NOTE)."""
+    for part, out, ref in zip(("dq", "dk", "dv") if len(outs) == 3 else ("dx", "dscale"), outs, refs):
+        err, rel = _err(out, ref), _rel(out, ref)
+        top = ref.float().abs().max().item()
+        tol = BWD_F32_TOL * top if dt == torch.float32 else None
+        ok = err <= tol if tol is not None else rel <= REL_TOL
+        bar = f"tol {tol:.3e} (1e-4 x max |ref| {top:.3f})" if tol is not None else f"rel tol {REL_TOL:g}"
+        log(f"[bwd] {name} {label} {part}: max_abs_err {err:.3e}, rel_err {rel:.3e} ({bar})")
+        if not ok:
+            raise AssertionError(f"{name} {label} {part}: max_abs_err {err}, rel_err {rel}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
+def _flash_bwd_case(rng, dev, B, Hq, Hkv, S, dh, window, dt):
+    """q, k, v, dout at one shape, the forward kernel's out and LSE, and the plain
+    LSE it is held to."""
+    q = _randn(rng, (B, Hq, S, dh), dt, dev)
+    k, v = _randn(rng, (B, Hkv, S, dh), dt, dev), _randn(rng, (B, Hkv, S, dh), dt, dev)
+    dout = _randn(rng, (B, Hq, S, dh), dt, dev)
+    chunk = 1024 if S % 1024 == 0 else S  # the plain version's blocks
+    out, lse = fa_ops.flash_attention_lse_bhsd(q, k, v, window=window, chunk=chunk)
+    _, lse_ref = attention_lse_ref(q, k, v, window=window, chunk=chunk)
+    return (q, k, v, out, dout, lse), lse_ref, chunk
+
+
+def _flash_bwd_timing(rng, dev, rec, B, Hq, Hkv, S, dh, window) -> dict:
+    """The flash backward in bf16 at one shape: checked, then timed beside its plain
+    version and SDPA's backward (the window as a boolean mask where there is one)."""
+    bf = torch.bfloat16
+    (q, k, v, out, dout, lse), lse_ref, chunk = _flash_bwd_case(rng, dev, B, Hq, Hkv, S, dh, window, bf)
+    label = f"q ({B},{Hq},{S},{dh}) kv heads {Hkv} bf16 causal" + (f" window {window}" if window else "")
+    lse_err = _err(lse, lse_ref)
+    log(f"[bwd] flash_attention forward LSE at {label}: max_abs_err {lse_err:.3e} (tol "
+        f"{BWD_F32_TOL * lse_ref.abs().max().item():.3e} = 1e-4 x max |lse|)")
+    if not lse_err <= BWD_F32_TOL * lse_ref.abs().max().item():
+        raise AssertionError(f"flash forward LSE {label}: {lse_err}")
+    kern = lambda: fa_ops.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, window=window,  # noqa: E731
+                                                   chunk=chunk)
+    ref = flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window, chunk=chunk)
+    _bwd_check("flash_attention_bwd", label, kern(), ref, bf, rec)
+    del ref
+    plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window,
+                                                    chunk=chunk), iters=1, warmup=1)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+                                          enable_gqa=True)
+    library = time_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dout, retain_graph=True),
+                      iters=3, warmup=1)
+    del sdpa
+    nbytes = (4 * B * Hq + 4 * B * Hkv) * S * dh * 2 + B * Hq * S * 4
+    return timing(label, time_ms(kern, iters=5, warmup=1, graph=True), plain, library, nbytes,
+                  10 * dh * live_pairs(S, window) * B * Hq, bf)
+
+
+def _norm_bwd_timing(rng, dev, rec, rows, d) -> dict:
+    """The RMSNorm backward (the plain norm's: ln1, final_norm) in bf16 at (rows, d):
+    checked, then timed beside its plain version and `F.rms_norm`'s backward."""
+    bf = torch.bfloat16
+    x, dy = _randn(rng, (rows, d), bf, dev), _randn(rng, (rows, d), bf, dev)
+    sc = 1 + 0.1 * _randn(rng, (d,), torch.float32, dev)  # see NORM_GAIN_NOTE
+    label = f"x, dy ({rows},{d}) bf16"
+    _bwd_check("rmsnorm_bwd", label, rms_ops.rmsnorm_backward(x, None, sc, dy),
+               rmsnorm_bwd_ref(x, None, sc, dy), bf, rec)
+    plain = time_ms(lambda: rmsnorm_bwd_ref(x, None, sc, dy))
+    xs, ws = x.detach().clone().requires_grad_(), sc.to(bf).requires_grad_()
+    y = F.rms_norm(xs, (d,), ws, 1e-5)
+    library = time_ms(lambda: torch.autograd.grad(y, (xs, ws), dy, retain_graph=True), iters=20)
+    return timing(label, time_ms(lambda: rms_ops.rmsnorm_backward(x, None, sc, dy), iters=50,
+                                 graph=True), plain,
+                  library, 3 * rows * d * 2 + 2 * d * 4, 8 * rows * d, bf)
+
+
+def phase_bwd_kernels(dev, *, danube=(2, 32, 8, 6144, 80, 4096), qwen=(4, 40, 8, 1024, 128, None),
+                      dh64=(4, 32, 32, 1024, 64, None), norms=((12288, 2560), (4096, 5120)),
+                      qk_rows=163840, sweeps=True) -> dict:
+    """The two backward kernels against their plain versions (BWD_BAR_NOTE), and timed.
+
+    Flash backward at h2o-danube's training shape (`danube`: B, Hq, Hkv, S,
+    dh, window; past the window), at qwen3-14b's (`qwen`) and at dh 64 with
+    G 1 (`dh64`); each also checks the forward kernel's LSE against the plain
+    LSE. With `sweeps`, float32 and bf16 at ragged S, windows and every head
+    dim. RMSNorm backward at the training rows `norms`, plain and fused (with
+    the cotangent of r), and at qwen3's qk-norm rows (d 128, eps 1e-6).
+    """
+    rng = np.random.default_rng(1)
+    rec = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS}
+    if sweeps:
+        for case in ((1, 8, 2, 300, 80, 128), (2, 4, 4, 256, 32, None), (1, 10, 2, 200, 128, None),
+                     (2, 4, 1, 384, 64, 100)):
+            for dt in (torch.float32, torch.bfloat16):
+                (q, k, v, out, dout, lse), _, chunk = _flash_bwd_case(rng, dev, *case, dt)
+                grads = fa_ops.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, window=case[5],
+                                                        chunk=chunk)
+                _bwd_check("flash_attention_bwd", f"B{case[0]} Hq{case[1]} Hkv{case[2]} S{case[3]} "
+                           f"dh{case[4]} win{case[5]} {str(dt)[6:]}", grads,
+                           flash_attention_bwd_ref(q, k, v, out, dout, lse, window=case[5],
+                                                   chunk=chunk), dt, rec["flash_attention_bwd"])
+    for rows, d, eps, fused, dt in [(r, dd, 1e-5, f, torch.bfloat16) for r, dd in norms
+                                    for f in (False, True)] + [(qk_rows, 128, 1e-6, False, torch.bfloat16)] \
+            + ([(300, 256, 1e-5, True, torch.float32), (33, 100, 1e-5, False, torch.float32)]
+               if sweeps else []):
+        x, res, dy, dr = (_randn(rng, (rows, d), dt, dev) for _ in range(4))
+        sc = 1 + 0.1 * _randn(rng, (d,), torch.float32, dev)
+        args = (x, res if fused else None, sc, dy, dr if fused else None)
+        _bwd_check("rmsnorm_bwd", f"({rows},{d}) {'fused' if fused else 'plain'} eps {eps:g} "
+                   f"{str(dt)[6:]}", rms_ops.rmsnorm_backward(*args, eps=eps),
+                   rmsnorm_bwd_ref(*args, eps=eps),
+                   dt, rec["rmsnorm_bwd"])
+    rec["flash_attention_bwd"].update(_flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *danube))
+    rec["flash_attention_bwd"]["extra"] = [
+        _flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *qwen),
+        _flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *dh64)]
+    first, *rest = norms
+    rec["rmsnorm_bwd"].update(_norm_bwd_timing(rng, dev, rec["rmsnorm_bwd"], *first))
+    rec["rmsnorm_bwd"]["extra"] = [_norm_bwd_timing(rng, dev, rec["rmsnorm_bwd"], *n) for n in rest]
+    for name, r in rec.items():
+        for t in [r, *r.get("extra", [])]:
+            log(f"[bwd] {name} at {t['shape']}: kernel {t['ms']:.4f} ms ({t['rate']}, "
+                f"{100 * t['share_of_bound']:.1f}% of bound), plain {t['plain_ms']:.4f} ms, "
+                f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return rec
+
+
+def _token_ce(model, params, batch) -> torch.Tensor:
+    """Each position's CE (B, S), float32, without autograd (TRAIN_NOTE)."""
+    with torch.no_grad():
+        x, _ = model.forward(params, batch)
+        logits = model._head(params, x)
+        return torch.logsumexp(logits, -1) - logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+
+
+def phase_train_parity(dev, cfg, *, batch=1, seq=6144, seed=0, remats=("none", "selective", "full")):
+    """The training path at the config's width and depth (2 layers in `main`), bf16.
+
+    The loss and every gradient leaf through the kernels against the plain
+    path, at twice the bf16 floor (TRAIN_NOTE); then the kernel path under
+    each remat policy, whose losses and gradients must be identical, with
+    each run's peak memory."""
+    model, plain = Model(cfg), Model(cfg, kernels=False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = model.init(seed, dev, widen_head=False)
+    params32 = cast_tree(params, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                                 (batch, seq + 1))).to(dev)
+    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for label, m, p in (("kernels", model, params), ("plain", plain, params),
+                        ("plain_fp32", Model(cfg32, kernels=False), params32)):
+        grads, met = loss_and_grads(m, p, data, "selective")
+        runs[label] = (dict(paths(grads)), float(met["loss"]), _token_ce(m, p, data))
+    ce = {k: r[2] for k, r in runs.items()}
+    floor = (ce["plain"] - ce["plain_fp32"]).abs().mean().item()
+    loss_err = abs(runs["kernels"][1] - runs["plain"][1])
+    log(f"[train-parity] {cfg.name} L{cfg.num_layers} d{cfg.d_model} B{batch} S{seq} bf16: loss kernels "
+        f"{runs['kernels'][1]:.6f}, plain {runs['plain'][1]:.6f}, plain float32 "
+        f"{runs['plain_fp32'][1]:.6f}; kernels vs plain {loss_err:.3e} (tolerance {2 * floor:.3e} = "
+        f"2 x the mean per-token bf16 floor {floor:.3e})")
+    if not (np.isfinite(runs["kernels"][1]) and loss_err <= 2 * floor):
+        raise AssertionError(f"train parity {cfg.name}: loss {loss_err} > {2 * floor}")
+    worst = 0.0
+    for key, g32 in runs["plain_fp32"][0].items():
+        gk, gp = runs["kernels"][0][key], runs["plain"][0][key]
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"train parity {cfg.name}: non-finite gradient {key}")
+        norm = g32.float().norm()
+        rel_k = ((gk.float() - gp.float()).norm() / norm).item()
+        leaf_floor = ((gp.float() - g32.float()).norm() / norm).item()
+        worst = max(worst, rel_k / max(leaf_floor, 1e-30))
+        log(f"[train-parity] {cfg.name} grad {key}: rel_err kernels vs plain {rel_k:.3e} "
+            f"(tolerance {2 * leaf_floor:.3e}; floor {leaf_floor:.3e}), kernels vs float32 "
+            f"{((gk.float() - g32.float()).norm() / norm).item():.3e}")
+        if not rel_k <= 2 * leaf_floor:
+            raise AssertionError(f"train parity {cfg.name}: grad {key} {rel_k} > {2 * leaf_floor}")
+    del runs
+    same, mems = True, {}
+    ref = None
+    for remat in remats:
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        grads, met = loss_and_grads(model, params, data, remat)
+        sync()
+        mems[remat] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+        flat = (met["loss"], *(g for _, g in paths(grads)))
+        if ref is None:
+            ref = flat
+        else:
+            same &= all(torch.equal(a, b) for a, b in zip(flat, ref))
+        del grads
+    log(f"[train-parity] {cfg.name} kernel path under remat {', '.join(remats)}: losses and "
+        f"gradients {'identical' if same else 'DIFFER'}; peak GiB "
+        + ", ".join(f"{r} {m:.2f}" for r, m in mems.items()))
+    if not same:
+        raise AssertionError(f"train parity {cfg.name}: remat policies give other gradients")
+    return {"loss_err": loss_err, "floor": floor, "worst_leaf_ratio": worst, "peak_gib": mems}
+
+
+def phase_resume(dev, cfg, *, batch=1, seq=2048, steps=4, at=2, seed=0) -> dict:
+    """A Trainer that saves a checkpoint at step `at` and a fresh one that resumes
+    from it: its steps at..steps-1 against the uninterrupted run's, on the same
+    data. The losses must agree within 1e-6 relative; whether they agree bit for
+    bit is logged."""
+    import shutil
+
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    quiet = dict(log=lambda *_: None)
+    straight = Trainer(Model(cfg), ParallelConfig(), TrainConfig(steps=steps), dev)
+    _, hist = straight.fit(straight.init_state(seed), data, steps=steps, **quiet)
+    del straight
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tc = TrainConfig(steps=steps, checkpoint_dir=str(CKPT_DIR), checkpoint_every=at)
+    first = Trainer(Model(cfg), ParallelConfig(), tc, dev)
+    first.fit(first.init_state(seed), data, steps=at, **quiet)
+    del first
+    second = Trainer(Model(cfg), ParallelConfig(), tc, dev)
+    state, start = second.resume()
+    _, resumed = second.fit(state, data, steps=steps - at, start_step=start, **quiet)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    a, b = [h["loss"] for h in resumed], [h["loss"] for h in hist[at:]]
+    bitwise = a == b
+    err = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    log(f"[resume] {cfg.name} L{cfg.num_layers} d{cfg.d_model} B{batch} S{seq}: checkpoint at step "
+        f"{at}, resumed from {start}; steps {at}-{steps - 1} losses {a} vs uninterrupted {b}: "
+        f"{'bit for bit' if bitwise else f'not bit for bit, max rel {err:.3e}'}")
+    if start != at or not err <= 1e-6:
+        raise AssertionError(f"resume: {a} vs {b}")
+    return {"losses": a, "straight": b, "bitwise": bitwise}
+
+
+def phase_train_run(dev, cfg, smi, *, batch=2, seq=6144, steps=6, remat="selective",
+                    warmup=TRAIN_WARMUP) -> dict:
+    """The training path at the config's full width and depth through
+    `launch.train.run`: every kernel of the path (TRAIN_PATH) must launch, and
+    decode attention must not; every loss finite. Step time, tokens/s and MFU
+    over the steps after `warmup`; MFU counts 6 N a token plus attention's
+    14 dh flops a live pair (4 dh forward, 10 dh backward) over 989 TFLOP/s."""
+    build.reset_launches()
+    out = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat=remat,
+                    log=lambda *_: None)
+    launches = dict(build.LAUNCHES)
+    losses = out["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    missing = [k for k in TRAIN_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"train: kernels never launched on the main path: {missing}")
+    if launches["decode_attention"]:
+        raise AssertionError("train: decode attention launched while training")
+    step_s = float(np.mean(out["step_times"][warmup:]))
+    tokens = out["tokens_per_step"]
+    attn = 14 * cfg.head_dim * live_pairs(seq, cfg.sliding_window) * batch * cfg.num_heads * cfg.num_layers
+    flops = 6 * out["params"] * tokens + attn
+    mfu = flops / step_s / PEAK_BF16
+    mem = out["max_memory_allocated"] / 2**30
+    per_step = out["launches_per_step"][-1]
+    log(f"[train] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype} {out['params']} params, "
+        f"B{batch} x S{seq}, AdamW, remat {remat}, on {torch.cuda.get_device_name(0)} ({smi}): "
+        f"step {step_s:.4f} s (mean of steps {warmup}-{steps - 1}; all: "
+        f"{[round(t, 4) for t in out['step_times']]}), {tokens / step_s:.1f} tokens/s, losses "
+        f"{[round(x, 5) for x in losses]}, peak {mem:.2f} GiB, MFU {100 * mfu:.2f}% "
+        f"({flops / 1e12:.1f} TFLOP a step: 6 N tokens {6 * out['params'] * tokens / 1e12:.1f} + "
+        f"attention {attn / 1e12:.1f}); launches per step {per_step}")
+    return {"step_s": step_s, "tokens_per_s": tokens / step_s, "losses": losses, "peak_gib": mem,
+            "mfu": mfu, "launches": launches, "launches_per_step": per_step,
+            "step_times": out["step_times"]}
+
+
+def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", top=10) -> dict:
+    """Where a training step's time goes, at the train run's shape: one step
+    after a warm-up one, timed by the host clock (ending in a sync), then one
+    more traced with torch.profiler: device busy time, idle share, the
+    kernels that take the most device time, and the device time of each
+    kernel of the training path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = Trainer(Model(cfg), ParallelConfig(remat=remat), TrainConfig(steps=3), dev)
+    state = trainer.init_state()
+    data = SyntheticLM(cfg.vocab_size, seq, batch)
+    quiet = dict(log=lambda *_: None)
+    state, hist = trainer.fit(state, data, steps=2, **quiet)
+    wall_ms = hist[-1]["step_time_s"] * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.fit(state, data, steps=1, start_step=2, **quiet)
+        sync()
+    del state
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[train-trace] {cfg.name} training step B{batch} x S{seq}, remat {remat}: wall {wall_ms:.1f} ms "
+        f"(host clock, untraced), device busy {device_ms:.1f} ms, idle share "
+        f"{max(0.0, 1 - device_ms / wall_ms):.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[train-trace]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d} calls  {e.key[:90]}")
+    ours = {}
+    for e in events:  # the kernels of csrc/, by their C++ names
+        for name in ("flash_attention_tc_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel",
+                     "rmsnorm_kernel", "rmsnorm_residual_kernel", "rmsnorm_bwd_kernel",
+                     "reduce_partials_kernel"):
+            if name in e.key:
+                ours[name] = ours.get(name, 0.0) + e.self_device_time_total / 1e3
+    log("[train-trace]   the port's kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()))
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -973,6 +1341,7 @@ def main() -> None:
     dev = torch.device("cuda")
     phase_build()
     rec = phase_kernels(dev)
+    rec.update(phase_bwd_kernels(dev))
     for arch in ARCHS:
         if arch in NOT_ON_ONE_CARD:
             log(f"[parity] {arch} left out: {NOT_ON_ONE_CARD[arch]}")
@@ -1001,12 +1370,26 @@ def main() -> None:
             f"{1e3 * r['decode_seconds'] / max(r['decode_steps'], 1):14.3f}   "
             f"{(r['max_memory_allocated'] or 0) / 2**30:8.2f}   "
             f"{t['wall_ms']:.3f}, {t['device_ms']:.3f}, {1 - t['device_ms'] / t['wall_ms']:.3f}")
+    for arch, shape in TRAIN_PARITY.items():
+        phase_train_parity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed,
+                           **shape)
+        torch.cuda.empty_cache()
+    phase_resume(dev, dataclasses.replace(get_config(TRAIN_RUN["arch"]), num_layers=2), seed=args.seed)
+    torch.cuda.empty_cache()
+    run_cfg = get_config(TRAIN_RUN["arch"])
+    train = phase_train_run(dev, run_cfg, smi, **{k: v for k, v in TRAIN_RUN.items() if k != "arch"})
+    torch.cuda.empty_cache()
+    phase_train_trace(dev, run_cfg, batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"],
+                      remat=TRAIN_RUN["remat"])
+    runs = {**{c: r["launches"] for c, r in serves.items()}, f"train {run_cfg.name}": train["launches"]}
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s")
-    # launches: each serve run's counts (set to 0 before it, read after it), summed
+    # launches: each main-path run's counts (set to 0 before it, read after it), summed
+    # over the serve runs and the training run
+    sources = {**KERNELS, **TRAIN_KERNELS}
     kernels = [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": sum(r["launches"][name] for r in serves.values()),
-         "launches_by_config": {c: r["launches"][name] for c, r in serves.items()},
+        {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+         "launches": sum(r[name] for r in runs.values()),
+         "launches_by_config": {c: r[name] for c, r in runs.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],

@@ -1,9 +1,10 @@
 """Model descriptor for the port: the fields of `repro.configs.base.ModelConfig` it reads.
 
 A copy, not an import: the port does not import the JAX package. Only the
-fields that the port's model paths read are kept; `attn_impl` and
-`attn_chunk` are not, because on CUDA prefill always runs the flash kernel
-and on the CPU its plain version.
+fields that the port's model paths read are kept. `attn_impl` and
+`attn_chunk` choose `self_attention`'s path as in JAX (dense at or below one
+chunk, else the flash VJP); prefill always runs the flash kernel on CUDA and
+its plain version on the CPU, whatever they say.
 """
 
 from __future__ import annotations
@@ -69,6 +70,9 @@ class ModelConfig:
     dtype: str = "bfloat16"  # activation compute dtype
     param_dtype: str = "bfloat16"
     loss_chunk: int = 2048  # sequence-chunked CE to bound logits memory
+    # self_attention's path: "dense", or "chunked" (the flash VJP above attn_chunk tokens)
+    attn_impl: str = "chunked"
+    attn_chunk: int = 1024
 
     @property
     def q_dim(self) -> int:
@@ -99,6 +103,8 @@ class ModelConfig:
             sliding_window=16 if self.sliding_window else None,
             param_dtype="float32",
             dtype="float32",
+            attn_impl="dense",
+            attn_chunk=16,
             loss_chunk=32,
         )
         if self.moe is not None:
@@ -117,3 +123,45 @@ class ModelConfig:
             small["attn_every"] = 2
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Distribution settings: mesh layout + policies (`repro.configs.base.ParallelConfig`).
+
+    The port trains on one device: it reads `remat`, `grad_compress` and
+    `microbatches`. The mesh and ZeRO fields (`mesh_shape`, `mesh_axes`,
+    `dp_axes`, `tp_axes`, `sequence_parallel`, `context_parallel_axes`,
+    `zero1`, `pp_stages`) are kept field for field and read only from
+    ROADMAP A6 (distribution) onward.
+    """
+
+    mesh_shape: tuple[int, ...] = ()
+    mesh_axes: tuple[str, ...] = ()
+    dp_axes: tuple[str, ...] = ("data",)
+    tp_axes: tuple[str, ...] = ("model",)
+    sequence_parallel: bool = True
+    context_parallel_axes: tuple[str, ...] = ()
+    remat: str = "selective"  # none | selective | full
+    zero1: bool = True
+    grad_compress: bool = False  # int8 gradient quantization with error feedback
+    microbatches: int = 1  # gradient accumulation
+    pp_stages: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    optimizer: str = "adamw"  # adamw | adamw8bit
+    seed: int = 0
+    log_every: int = 10
+    checkpoint_every: int = 0  # 0 = disabled
+    checkpoint_dir: str = ""
+    keep_checkpoints: int = 3

@@ -12,6 +12,12 @@
 //   ~330 flops a byte, above the card's ~295 for bf16 tensor cores. Only the
 //   tensor cores (wgmma) reach that rate: fp32 FMAs top out at 67 TFLOP/s.
 //
+// With a non-null `lse` (training), each kernel also writes the log-sum-exp of
+// every query row's scaled scores, float32 (B, Hq, S) contiguous, as
+// repro/models/flash_vjp.py's _fwd does: m + log(max(l, 1e-30)) in natural
+// units. The backward (flash_attention_bwd.cu) recomputes P from it. Serving
+// passes null and writes nothing more.
+//
 // Two kernels, chosen explicitly by (dtype, dh) in the launcher:
 //
 // 1. bf16, dh 64, 80 and 128 (the model's path): flash_attention_tc_kernel.
@@ -60,8 +66,9 @@ constexpr size_t fa_smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int S, int G, long long qsb, long long qsh,
-                       long long qss, long long ksb, long long ksh, long long kss,
+                       T* __restrict__ o, float* __restrict__ lse, int S, int G,
+                       long long qsb, long long qsh, long long qss, long long ksb,
+                       long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss, long long osb,
                        long long osh, long long oss, int window, float scale) {
   extern __shared__ float smem[];
@@ -153,6 +160,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     T* op = o + b * osb + h * osh + qpos * oss;
 #pragma unroll
     for (int i = 0; i < DH / 4; ++i) op[c0 + 4 * i] = from_f32<T>(acc[i] * inv);
+    if (lse != nullptr && c0 == 0)  // m and l are the whole row's in every lane of the four
+      lse[((long long)b * gridDim.y + h) * S + qpos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -199,8 +208,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                          int S, int G, long long osb, long long osh, long long oss, int window,
-                          float scale_log2) {
+                          float* __restrict__ lse, int S, int G, long long osb, long long osh,
+                          long long oss, int window, float scale_log2) {
   using L = Smem<DH>;
   static_assert(DH % 16 == 0, "Q.K^T takes dh in k16 steps");
   constexpr int DP = L::DP, NH = DP / BOX_D;  // padded tile width, boxes per tile row
@@ -330,6 +339,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m is in log2 units of the scaled scores
+    float* lrow = lse + ((long long)b * gridDim.y + h) * S;
+    if (r0 < S) lrow[r0] = m0 * 0.6931471805599453f + logf(fmaxf(l0, 1e-30f));
+    if (r0 + 8 < S) lrow[r0 + 8] = m1 * 0.6931471805599453f + logf(fmaxf(l1, 1e-30f));
+  }
   const int rl = wg * WG_ROWS + warp * 16 + (lane >> 2);  // row r0 within the block
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
@@ -353,8 +367,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int DH>
-static int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                  int S, const long long* st, int window, float scale, cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+                  int Hkv, int S, const long long* st, int window, float scale,
+                  cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, DH, Hq, S, B, st[0], st[1], st[2], BQ) ||
       !make_map(&km, k, DH, Hkv, S, B, st[3], st[4], st[5], BK) ||
@@ -365,7 +380,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, THREADS, smem, stream>>>(qm, km, vm, (__nv_bfloat16*)o, S, Hq / Hkv, st[9], st[10],
+  kern<<<grid, THREADS, smem, stream>>>(qm, km, vm, (__nv_bfloat16*)o, lse, S, Hq / Hkv, st[9], st[10],
                                         st[11], window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -373,8 +388,8 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
 }  // namespace tc
 
 template <typename T, int DH>
-static int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                        int Hkv, int S, const long long* st, int window, float scale,
+static int launch_typed(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int Hq, int Hkv, int S, const long long* st, int window, float scale,
                         cudaStream_t stream) {
   auto kern = flash_attention_kernel<T, DH>;
   const size_t smem = fa_smem_bytes<DH>();
@@ -382,7 +397,7 @@ static int launch_typed(const void* q, const void* k, const void* v, void* o, in
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, S,
+  kern<<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S,
                                         Hq / Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
                                         st[6], st[7], st[8], st[9], st[10], st[11], window,
                                         scale);
@@ -393,8 +408,8 @@ static int launch_typed(const void* q, const void* k, const void* v, void* o, in
 // box_d, box_q, box_k: the TMA boxes the caller planned for the tensor-core
 // path (64, 128, 64; dh 80 reads two boxes of 64 columns), or zeros for the fp32-tile kernel; any other value is
 // refused, so the Python plan and this file cannot drift apart silently.
-extern "C" int launch_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                      int Hq, int Hkv, int S, int dh, long long qsb,
+extern "C" int launch_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                      void* lse_ptr, int B, int Hq, int Hkv, int S, int dh, long long qsb,
                                       long long qsh, long long qss, long long ksb, long long ksh,
                                       long long kss, long long vsb, long long vsh, long long vss,
                                       long long osb, long long osh, long long oss, int box_d,
@@ -403,20 +418,21 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
   if (B == 0 || S == 0) return 0;
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;
+  float* lse = (float*)lse_ptr;  // null: no LSE
   const bool tc_path = dtype == kBF16 && (dh == 64 || dh == 80 || dh == 128);
   if (tc_path != (box_d != 0) || (tc_path && (box_d != tc::BOX_D || box_q != tc::BQ || box_k != tc::BK)))
     return (int)cudaErrorInvalidValue;
-  if (tc_path && dh == 64) return tc::launch<64>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
-  if (tc_path && dh == 80) return tc::launch<80>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
-  if (tc_path) return tc::launch<128>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
+  if (tc_path && dh == 64) return tc::launch<64>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
+  if (tc_path && dh == 80) return tc::launch<80>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
+  if (tc_path) return tc::launch<128>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
   if (dtype == kBF16 && dh == 32)
-    return launch_typed<__nv_bfloat16, 32>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
+    return launch_typed<__nv_bfloat16, 32>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
   if (dtype != kF32) return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch_typed<float, 32>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
-    case 64: return launch_typed<float, 64>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
-    case 80: return launch_typed<float, 80>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
-    case 128: return launch_typed<float, 128>(q, k, v, o, B, Hq, Hkv, S, st, window, scale, s);
+    case 32: return launch_typed<float, 32>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
+    case 64: return launch_typed<float, 64>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
+    case 80: return launch_typed<float, 80>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
+    case 128: return launch_typed<float, 128>(q, k, v, o, lse, B, Hq, Hkv, S, st, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,12 +33,14 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES = {"rmsnorm": 0, "rmsnorm_residual": 0, "flash_attention": 0, "decode_attention": 0}
+LAUNCHES = {"rmsnorm": 0, "rmsnorm_residual": 0, "flash_attention": 0, "decode_attention": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of each C entry point in csrc/ (the stream is the last argument of each launcher)
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype, the launch plan (elements per load,
@@ -46,11 +48,18 @@ SIGNATURES = {
     "launch_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _I, _P],
     # x, res, scale, y, r, rows, d, eps, dtype, stream
     "launch_rmsnorm_residual": [_P, _P, _P, _P, _P, _L, _I, _F, _I, _P],
-    # q, k, v, o, B, Hq, Hkv, S, dh, q strides (b, h, s), k strides, v strides,
-    # o strides, TMA boxes (dh columns, query rows, keys; zeros: no TMA),
-    # window (<=0: none), scale, dtype, stream
-    "launch_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    # q, k, v, o, lse (null: none), B, Hq, Hkv, S, dh, q strides (b, h, s), k
+    # strides, v strides, o strides, TMA boxes (dh columns, query rows, keys;
+    # zeros: no TMA), window (<=0: none), scale, dtype, stream
+    "launch_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, dout, lse, delta (scratch), dq, dk, dv, B, Hq, Hkv, S, dh,
+    # the 24 (b, h, s) strides of q, k, v, o, dout, dq, dk, dv, window, scale,
+    # dtype, stream
+    "launch_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_LP, _I, _F, _I, _P],
+    # x, res (null: none), scale, dy, dr (null: none), dx, partial sums
+    # (scratch), dscale, rows, d, eps, dtype, lanes, blocks, stream
+    "launch_rmsnorm_bwd": [_P] * 8 + [_L, _I, _F, _I, _I, _I, _P],
     # q, k, v, o, B, Hkv, G, T, dh, k strides (b, h, t), v strides, n_valid,
     # the launch plan (n_split, tiles per CTA, ring stages, smem bytes, TMA box
     # dh columns and slots, slot extent), scale, dtype, stream

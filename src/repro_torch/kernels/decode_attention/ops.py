@@ -2,7 +2,9 @@
 
 A CUDA tensor goes to the CUDA kernel, which launches or raises; a CPU
 tensor goes to the plain version in `ref.py`. The TPU wrapper padded the
-cache to its 512-slot block; the kernel masks the ragged end instead.
+cache to its 512-slot block; the kernel masks the ragged end instead. The
+kernel has no backward (decoding is never differentiated), so on CUDA the
+wrapper refuses inputs that require grad rather than drop their gradient.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ def decode_attention(q, k, v, n_valid: int, *, scale: float | None = None) -> to
     scale dh**-0.5 unless given."""
     if not q.is_cuda:
         return decode_attention_ref(q, k, v, n_valid, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention has no backward: it would drop the gradient")
     return flash_decode(q, k, v, n_valid, scale=scale)
 
 

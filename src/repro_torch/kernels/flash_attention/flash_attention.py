@@ -67,18 +67,28 @@ def launch_args(q, k, v, out, *, scale: float | None, window: int | None) -> tup
 
 
 def flash_attention_fwd(q, k, v, out, *, scale: float | None = None,
-                        window: int | None = None) -> torch.Tensor:
-    """Causal GQA attention of CUDA q, k, v into `out` (see `launch_args`)."""
+                        window: int | None = None, lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal GQA attention of CUDA q, k, v into `out` (see `launch_args`).
+
+    With `lse`, a contiguous float32 (B, Hq, S) tensor, the kernel also writes
+    each query row's log-sum-exp of its scaled scores there (training); serving
+    passes none.
+    """
     tensors = (q, k, v, out)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash_attention: q, k, v and out must be on one CUDA device")
     if len({t.dtype for t in tensors}) != 1:
         raise ValueError("flash_attention: q, k, v and out must share one dtype")
     args = launch_args(q, k, v, out, scale=scale, window=window)
+    if lse is not None and (lse.dtype != torch.float32 or lse.device != q.device
+                            or lse.shape != q.shape[:3] or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be contiguous float32 {tuple(q.shape[:3])} "
+                         f"on {q.device}")
     code = build.dtype_code(q)
     lib = build.library()
     with torch.cuda.device(q.device):
         err = lib.launch_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                         None if lse is None else lse.data_ptr(),
                                          *args, code, build.stream_ptr(q.device))
     build.check(lib, err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1

@@ -1,11 +1,12 @@
 """GQA attention: full-sequence, prefill with a KV cache, and one-token decode over it.
 
-Port of the inference half of `repro.models.attention`. With `kernels=True`
-(the model's default) the q/k norms run through the RMSNorm kernel, the
-full-sequence attention and prefill through the flash-attention kernel and
-decode through the flash-decode kernel; on CPU tensors those wrappers run
-their plain versions. With `kernels=False` the plain PyTorch path below runs
-on any device; it is the oracle the kernels are held to on the card.
+Port of `repro.models.attention`. With `kernels=True` (the model's default)
+the q/k norms run through the RMSNorm kernel, prefill through the
+flash-attention kernel and decode through the flash-decode kernel; on CPU
+tensors those wrappers run their plain versions. With `kernels=False` the
+plain PyTorch path below runs on any device; it is the oracle the kernels
+are held to on the card. `self_attention` (training) chooses its path as
+JAX's does; see there.
 
 Caches keep JAX's layout, (B, W, Hkv, dh), so parity tests compare like with
 like; the kernels read them through strides. Unlike JAX, which returns new
@@ -20,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models.flash_vjp import flash_attention_vjp
 from repro_torch.models.layers import apply_rope, rms_head_norm
 
 NEG_INF = -1e30
@@ -71,12 +73,22 @@ def _causal_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, kernels: bool)
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                    kernels: bool = True) -> torch.Tensor:
-    """Full-sequence causal attention (`Model.forward`): x (B, S, D) -> (B, S, D).
+    """Full-sequence causal attention (`Model.forward`, training): x (B, S, D) -> (B, S, D).
 
-    Inference only: the flash kernel has no backward yet, so autograd does
-    not reach the parameters through the kernel path.
+    Dispatches as JAX's does: dense attention when `attn_impl == "dense"` or
+    S <= `attn_chunk`, else the flash VJP (`models/flash_vjp.py`): the CUDA
+    forward and backward kernels on CUDA with `kernels`, any S; otherwise
+    its plain twin, which needs S to be a multiple of `attn_chunk`, as JAX's
+    does, and stays O(S * chunk) in memory.
     """
-    return _causal_attention(cfg, p, x, kernels)[0]
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos, kernels)
+    if cfg.attn_impl == "dense" or S <= cfg.attn_chunk:
+        out = _dense_attention(q, k, v, pos, pos, cfg.sliding_window)
+    else:
+        out = flash_attention_vjp(q, k, v, cfg.sliding_window, cfg.attn_chunk, kernels=kernels)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype)
 
 
 # ----------------------------------------------------------------- KV caching

@@ -12,9 +12,13 @@ stacks its L layers `{ln1, tm, ln2, cm}`.
 Every weight keeps the `x @ W` orientation, `(in, out)`, so no transpose is
 needed anywhere.
 
-The output head `lm_head/w` is held in float32. The logits are computed in
-float32 (`Model._head`, as in JAX's `_head`), and casting the 5120 x 151936
-head once here, instead of on every decode step, costs 3.1 GB once.
+The output head `lm_head/w`. JAX holds it in the param dtype and widens it
+to float32 at each use (`Model._head`), and training keeps that: its grads,
+its AdamW rounding and its checkpoint entry are in the param dtype
+(`widen_head=False`). Serving may widen it once at load instead
+(`widen_head=True`, the default of `init_params` and `from_jax`): the logits
+are the same, exactly, and casting the 5120 x 151936 head once instead of on
+every decode step costs 3.1 GB once.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-HEAD = "lm_head/w"  # drawn or loaded in the param dtype, then held in float32
+HEAD = "lm_head/w"  # drawn or loaded in the param dtype; held in float32 when widened
 
 
 @dataclass(frozen=True)
@@ -217,13 +221,16 @@ def count_params(cfg: ModelConfig) -> int:
     return sum(int(np.prod(pd.shape)) for _, pd in _walk(param_defs(cfg)))
 
 
-def init_params(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
+def init_params(cfg: ModelConfig, seed: int, device: torch.device, *,
+                widen_head: bool = True) -> dict:
     """The port's own init: each leaf drawn on `device` from its own generator.
 
     The generator of a leaf is seeded with the crc32 of `"{seed}/{path}"`,
     as JAX folds a crc32 of the path into its key, so a leaf does not depend
     on the others. The values are NOT JAX's bits (torch cannot reproduce
     `jax.random`): parity tests take JAX's parameters through `from_jax`.
+    `widen_head` holds `lm_head/w` in float32 (serving; see the module's
+    docstring); training passes False.
     """
     params: dict = {}
     for path, pd in _walk(param_defs(cfg)):
@@ -238,29 +245,48 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
             g = torch.Generator(device=device)
             g.manual_seed(zlib.crc32(f"{seed}/{path}".encode()) & 0x7FFFFFFF)
             t = torch.empty(pd.shape, dtype=dtype, device=device).normal_(0.0, pd.stddev, generator=g)
-        _set(params, path, t.float() if path == HEAD else t)
+        _set(params, path, t.float() if widen_head and path == HEAD else t)
     return params
 
 
-def from_jax(params_np: dict, cfg: ModelConfig, device: torch.device) -> dict:
+def from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor copy of a numpy array; ml_dtypes bfloat16 arrives through its bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a copy: JAX's buffers are read-only
+
+
+def from_jax(params_np: dict, cfg: ModelConfig, device: torch.device, *,
+             widen_head: bool = True) -> dict:
     """JAX's parameter pytree, already converted to numpy, as the port's tree.
 
-    Values are copied bit for bit; only `lm_head/w` is widened to float32,
-    which is exact. bfloat16 leaves may arrive as ml_dtypes bfloat16 arrays.
+    Values are copied bit for bit; with `widen_head` (serving) `lm_head/w`
+    is widened to float32, which is exact. bfloat16 leaves may arrive as
+    ml_dtypes bfloat16 arrays.
     """
     params: dict = {}
     for path, pd in _walk(param_defs(cfg)):
         a = _get(params_np, path)
         if tuple(a.shape) != pd.shape:
             raise ValueError(f"{path}: shape {a.shape} != {pd.shape}")
-        dtype = pd.dtype or cfg.pdtype
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
-            t = t.view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))  # a copy: JAX's buffers are read-only
-        _set(params, path, t.to(device=device, dtype=torch.float32 if path == HEAD else dtype))
+        dtype = torch.float32 if widen_head and path == HEAD else pd.dtype or cfg.pdtype
+        _set(params, path, from_numpy(a).to(device=device, dtype=dtype))
     return params
+
+
+def state_from_jax(state_np: dict, cfg: ModelConfig, device: torch.device) -> dict:
+    """JAX's whole train state (numpy leaves) as the port's: `params` in JAX's
+    dtypes (the head not widened), `opt` {m, v, step} with the `{q, s}` leaves of
+    `adamw8bit`, and `grad_error` where present. Bit for bit."""
+    def tree(t):
+        return {k: tree(v) for k, v in t.items()} if isinstance(t, dict) else \
+            from_numpy(np.asarray(t)).to(device)
+
+    out = {"params": from_jax(state_np["params"], cfg, device, widen_head=False),
+           "opt": tree(state_np["opt"])}
+    if "grad_error" in state_np:
+        out["grad_error"] = tree(state_np["grad_error"])
+    return out
 
 
 def _get(tree: dict, path: str):
@@ -274,4 +300,15 @@ def layer_params(params: dict, i: int) -> dict:
     out: dict = {}
     for path, t in _walk(params["layers"]):
         _set(out, path, t[i])
+    return out
+
+
+def unstacked_layers(params: dict, n: int) -> list[dict]:
+    """Views of every layer of the stacked `(L, ...)` layer tree, through one
+    `unbind` a leaf: under autograd each stacked leaf then gets its grad by one
+    stack of the L layers' grads, not by L full-size scatters."""
+    out: list[dict] = [{} for _ in range(n)]
+    for path, t in _walk(params["layers"]):
+        for i, view in enumerate(t.unbind(0)):
+            _set(out[i], path, view)
     return out

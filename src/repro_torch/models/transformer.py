@@ -1,4 +1,4 @@
-"""Model assembly of every family of `repro.models.transformer`, for inference.
+"""Model assembly of every family of `repro.models.transformer`.
 
   dense / vlm / audio : [norm -> GQA attn -> norm -> MLP] x L
   moe                 : the MLP of each stacked layer is the routed MoE layer
@@ -8,9 +8,12 @@
   hybrid (zamba2)     : a Mamba2 backbone with one shared attn + MLP block
                         applied before every `attn_every` Mamba2 layers
 
-`forward`, `loss`, `prefill`, `init_cache` and `decode_step`; the backward
-comes with training. A Python loop over the blocks replaces `lax.scan`, over
-views of the stacked `(L, ...)` parameters. The hybrid splits its L layers
+`forward` (with JAX's remat policies), `loss`, `prefill`, `init_cache` and
+`decode_step`. Autograd differentiates `forward` and `loss` through the
+kernels' autograd Functions on the kernel path; training is held to JAX for
+the dense family (dense, vlm, audio), and `train/train_step.py` refuses the
+others. A Python loop over the blocks replaces `lax.scan`, over views of the
+stacked `(L, ...)` parameters (one `unbind` a leaf). The hybrid splits its L layers
 as JAX's `_hybrid_split` does: n_seg = L // attn_every segments of [shared
 block, attn_every Mamba2 layers], then, if layers are left, one more shared
 block and the tail of n_tail = L - n_seg * attn_every layers. The shared
@@ -42,7 +45,11 @@ on any device: the oracle the kernel path is held to on the card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -50,12 +57,41 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
-from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
-                                       n_head_layers)
+from repro_torch.models.params import (FAMILIES, _walk, count_params, init_params,
+                                       layer_params, n_head_layers, unstacked_layers)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # the slot axis of every cache leaf, by the part of the cache it is in
 SLOT_AXES = {"layers": 1, "head_layers": 0, "seg/shared": 1, "seg/mamba": 2, "tail": 0}
+
+
+# the families whose gradients are held to JAX's; the others are refused a backward
+TRAINED_FAMILIES = ("dense", "vlm", "audio")
+REMAT = ("none", "selective", "full")
+# selective remat saves the outputs of the batch-free matrix products, as JAX's
+# `dots_with_no_batch_dims_saveable` does: the projections and the MLP (`x @ W`
+# reaches aten.mm); the attention products carry batch dims (bmm) and, like
+# everything else, are recomputed in the backward
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, remat: str | None):
+    """`fn` under JAX's remat policy: "none" (or None) saves what autograd saves,
+    "full" saves nothing and recomputes the block in the backward, "selective"
+    saves only the matrix-product outputs (`_SAVED_OPS`)."""
+    if remat in (None, "none"):
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "selective":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_products))
+    raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
 
 def zero_aux(device) -> dict:
@@ -173,8 +209,15 @@ class Model:
             self.n_seg = cfg.num_layers // cfg.attn_every
             self.n_tail = cfg.num_layers - self.n_seg * cfg.attn_every
 
-    def init(self, seed: int, device: torch.device) -> dict:
-        return init_params(self.cfg, seed, device)
+    def check_trainable(self) -> None:
+        """Raise unless this family's gradients are held to JAX's (TRAINED_FAMILIES)."""
+        if self.cfg.family not in TRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the {self.cfg.family!r} family is not held to JAX "
+                "yet (ROADMAP A5b: the MoE aux-loss gradients, then Mamba2 and RWKV6 autograd)")
+
+    def init(self, seed: int, device: torch.device, *, widen_head: bool = True) -> dict:
+        return init_params(self.cfg, seed, device, widen_head=widen_head)
 
     def param_count(self) -> int:
         return count_params(self.cfg)
@@ -189,8 +232,8 @@ class Model:
             stacked = stacked["kv"]
         out = [(_apply_dense_layer, params["head_layers"][str(i)],
                 cache and cache["head_layers"][str(i)]["kv"]) for i in range(self.n_head)]
-        return out + [(layer, layer_params(params, i), stacked and _at(stacked, i))
-                      for i in range(self.n_scan)]
+        return out + [(layer, p, stacked and _at(stacked, i))
+                      for i, p in enumerate(unstacked_layers(params, self.n_scan))]
 
     def _hybrid_blocks(self, params: dict, cache: dict | None) -> list:
         k, shared = self.cfg.attn_every, params["shared"]
@@ -217,47 +260,60 @@ class Model:
             p = {"w": params["embed"]["tok"].T}
         return lm_logits(p, x, torch.float32)
 
-    def forward(self, params: dict, batch: dict):
+    def forward(self, params: dict, batch: dict, remat: str | None = None):
         """Full-sequence forward: (final hidden (B, S, D), aux).
 
         `aux` holds JAX's MoE metrics, summed over the stacked layers and
         divided by their number (the head layers are dense and add nothing),
-        all zero for the other families. Inference only: no remat, and the
-        kernels have no backward yet.
+        all zero for the other families. `remat` ("none", "selective",
+        "full"; `remat_wrap`) applies to each block, as JAX's applies to each
+        layer of its scan. A family outside TRAINED_FAMILIES refuses to run
+        when a gradient would be taken.
         """
+        if torch.is_grad_enabled() and any(t.requires_grad for _, t in _walk(params)):
+            self.check_trainable()
         x = self._inputs_to_hidden(params, batch)
         aux = zero_aux(x.device)
         for apply, p, _ in self._blocks(params):
-            x, a = apply(self.cfg, p, x, "forward", kernels=self.kernels)
+            block = functools.partial(apply, self.cfg, p, mode="forward", kernels=self.kernels)
+            x, a = remat_wrap(block, remat)(x)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in AUX_KEYS}
         aux = {k: v / max(self.n_scan, 1) for k, v in aux.items()}
         return _norm(params["final_norm"], x, self.kernels), aux
 
-    def loss(self, params: dict, batch: dict):
+    def _chunk_loss(self, params: dict, xc: torch.Tensor, y: torch.Tensor):
+        """(summed nll, valid count, hits) of one chunk, from its fp32 logits."""
+        logits = self._head(params, xc)  # (B, chunk, V) fp32
+        valid = (y >= 0).float()
+        gold = logits.gather(-1, y.clamp_min(0)[..., None])[..., 0]
+        nll = ((torch.logsumexp(logits, -1) - gold) * valid).sum()
+        return nll, valid.sum(), ((logits.argmax(-1) == y).float() * valid).sum()
+
+    def loss(self, params: dict, batch: dict, remat: str | None = None):
         """Next-token CE over `loss_chunk`-token chunks of fp32 logits: (loss, metrics).
 
         `batch["labels"]` (B, S) holds each position's target, -1 where it is
         ignored; S must be a multiple of the chunk. A chunk's (B, chunk, V)
-        logits are the only ones alive at a time. An MoE config adds
-        `aux_loss_coef` times the load-balance and z losses to the CE.
+        logits are the only ones alive at a time: under autograd each chunk is
+        checkpointed and its logits recomputed in the backward, as JAX's
+        `jax.checkpoint(chunk_loss)`. An MoE config adds `aux_loss_coef` times
+        the load-balance and z losses to the CE. `remat` goes to `forward`.
         """
         cfg = self.cfg
-        x, aux = self.forward(params, batch)
+        x, aux = self.forward(params, batch, remat=remat)
         labels = batch["labels"]
         B, S, _ = x.shape
         chunk = min(cfg.loss_chunk, S)
         if S % chunk:
             raise ValueError(f"sequence {S} is not a multiple of loss_chunk {chunk}")
+        chunk_loss = functools.partial(self._chunk_loss, params)
+        if torch.is_grad_enabled():
+            chunk_loss = functools.partial(checkpoint, chunk_loss, use_reentrant=False)
         tot = n = hits = torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(0, S, chunk):
-            logits = self._head(params, x[:, c:c + chunk])  # (B, chunk, V) fp32
-            y = labels[:, c:c + chunk].long()
-            valid = (y >= 0).float()
-            gold = logits.gather(-1, y.clamp_min(0)[..., None])[..., 0]
-            tot = tot + ((torch.logsumexp(logits, -1) - gold) * valid).sum()
-            n = n + valid.sum()
-            hits = hits + ((logits.argmax(-1) == y).float() * valid).sum()
+            nll, cnt, hit = chunk_loss(x[:, c:c + chunk], labels[:, c:c + chunk].long())
+            tot, n, hits = tot + nll, n + cnt, hits + hit
         n = n.clamp_min(1.0)
         ce = loss = tot / n
         if cfg.moe is not None:

@@ -1,0 +1,86 @@
+"""Training step factory (`repro.train.train_step`): loss -> grads -> (optional
+compression) -> AdamW.
+
+Microbatch gradient accumulation, JAX's three remat policies
+(`none`/`selective`/`full`, `models/transformer.py::remat_wrap`) and int8
+gradient compression with error feedback, on one device. ZeRO and meshes
+come with distribution (ROADMAP A6).
+
+The dense family (dense, vlm, audio) is held to JAX's gradients. The MoE
+aux-loss gradients and the Mamba2 and RWKV6 layers are not yet (ROADMAP
+A5b), so `make_train_step` (and `Model.forward` under autograd) refuses
+those families.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ParallelConfig, TrainConfig
+from repro_torch.models.transformer import Model
+from repro_torch.parallel.compression import compress_gradients
+from repro_torch.train.optimizer import adamw_update
+from repro_torch.train.tree import leaves, tree_map
+
+def _unflatten(tree: dict, flat: list):
+    """`flat` (in `leaves` order) in the structure of `tree`."""
+    it = iter(flat)
+
+    def build(t):
+        return {k: build(t[k]) for k in sorted(t)} if isinstance(t, dict) else next(it)
+
+    return build(tree)
+
+
+def loss_and_grads(model: Model, params: dict, batch: dict, remat: str | None = None):
+    """(grads in the params' structure and dtypes, detached loss metrics) of `model.loss`."""
+    flat = [t.detach().requires_grad_(True) for t in leaves(params)]
+    loss, metrics = model.loss(_unflatten(params, flat), batch, remat=remat)
+    # an unused leaf (the token table of a batch of embeds) gets zeros, as in JAX
+    grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+    return _unflatten(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    state = {"params", "opt", ["grad_error"]}, updated in place (see
+    `train/optimizer.py`); batch = {"tokens" or "embeds", "labels"} tensors
+    on the state's device. The metrics are 0-d tensors: JAX's loss metrics
+    (`loss`, `ce`, `accuracy` and the MoE aux keys), `grad_norm` and `lr`.
+    """
+    model.check_trainable()
+
+    def grads_of(params, batch):
+        return loss_and_grads(model, params, batch, pcfg.remat)
+
+    def accumulate(params, batch):
+        n = pcfg.microbatches
+        if n <= 1:
+            return grads_of(params, batch)
+        B = next(iter(batch.values())).shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} is not a multiple of microbatches {n}")
+        micro = [{k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
+                 for i in range(n)]
+        # the first microbatch seeds the accumulators, as JAX's scan does
+        g0, m0 = grads_of(params, micro[0])
+        g_acc = tree_map(lambda a: a.float() / n, g0)
+        m_acc = {k: v / n for k, v in m0.items()}
+        del g0
+        for mb in micro[1:]:
+            g, m = grads_of(params, mb)
+            g_acc = tree_map(lambda a, b: a + b.float() / n, g_acc, g)
+            m_acc = {k: m_acc[k] + m[k] / n for k in m_acc}
+        return g_acc, m_acc
+
+    def train_step(state, batch):
+        params, opt = state["params"], state["opt"]
+        grads, metrics = accumulate(params, batch)
+        new_state = {"params": params, "opt": opt}
+        if pcfg.grad_compress:
+            grads, new_state["grad_error"] = compress_gradients(grads, state.get("grad_error"))
+        new_state["params"], new_state["opt"], stats = adamw_update(params, grads, opt, tcfg)
+        return new_state, {**metrics, **stats}
+
+    return train_step

@@ -17,12 +17,14 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.decode_attention import flash_decode
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref, attention_ref,
+                                                     flash_attention_bwd_ref)
 from repro_torch.kernels.rmsnorm import ops as rms_ops
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref, rmsnorm_residual_ref
 from repro_torch.configs import get_config
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.params import init_params, layer_params
@@ -361,3 +363,124 @@ def test_recurrent_decode_steps_make_no_host_sync(dev, dtype):
         assert torch.isfinite(logits).all() and cache["pos"] == 23
         blocks = 2 if cfg.family == "hybrid" else 0  # zamba2's shared block at both applications
         assert build.LAUNCHES["decode_attention"] - n0["decode_attention"] == 3 * blocks
+
+
+# The backward kernels' bars (BWD_BAR_NOTE in chip_smoke.py): float32 max abs error
+# <= 1e-4 x the plain output's max |value| (sums in another order); bf16 relative
+# error (norm of the difference over the plain output's norm) <= 1e-2: both
+# compute in float32 and round once.
+def _bwd_close(out, ref, dtype):
+    if dtype == torch.float32:
+        assert _err(out, ref) <= 1e-4 * ref.abs().max().item()
+    else:
+        assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,S,dh,win",
+    [(2, 4, 4, 256, 64, None), (1, 8, 2, 256, 128, None), (2, 4, 2, 384, 64, 128),
+     (1, 2, 1, 300, 32, None), (1, 40, 8, 1000, 128, None), (1, 32, 8, 300, 80, None),
+     (2, 4, 2, 384, 80, 128), (1, 8, 2, 1100, 80, 512), (1, 4, 1, 64, 128, 1)],
+)
+def test_flash_attention_bwd_kernel(dev, dtype, B, Hq, Hkv, S, dh, win):
+    """The forward kernel's LSE and the backward kernel against their plain versions,
+    in the model layout's strided views."""
+    rng = np.random.default_rng(5)
+    q5 = _randn(rng, (B, S, Hkv, Hq // Hkv, dh), dtype, dev)
+    k4, v4 = _randn(rng, (B, S, Hkv, dh), dtype, dev), _randn(rng, (B, S, Hkv, dh), dtype, dev)
+    q, k, v = q5.reshape(B, S, Hq, dh).transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
+    dout = _randn(rng, (B, Hq, S, dh), dtype, dev)
+    n0 = dict(build.LAUNCHES)
+    out, lse = fa_ops.flash_attention_lse_bhsd(q, k, v, window=win)
+    _, lse_ref = attention_lse_ref(q, k, v, window=win)
+    assert _err(lse, lse_ref) <= 1e-4 * lse_ref.abs().max().item()
+    grads = fa_ops.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, window=win)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd"] == n0["flash_attention_bwd"] + 1
+    refs = flash_attention_bwd_ref(q, k, v, out, dout, lse, window=win)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if win == 1 and name != "dv":
+            # one key a query: P = 1, so dS = dP - delta = do.v - do.o is exactly
+            # zero, and both versions return only the rounding of two float32 sums
+            assert g.abs().max().item() <= 1e-4 and r.abs().max().item() <= 1e-4, name
+        else:
+            _bwd_close(g, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,D,eps,fused", [(256, 512, 1e-5, False), (300, 256, 1e-5, True),
+                                           (1000, 2560, 1e-5, True), (4000, 128, 1e-6, False),
+                                           (7, 5120, 1e-5, False), (33, 100, 1e-5, True),
+                                           (12288, 2560, 1e-5, False), (3, 1024, 1e-5, True)])
+def test_rmsnorm_bwd_kernel(dev, dtype, T, D, eps, fused):
+    rng = np.random.default_rng(6)
+    x, res, dy, dr = (_randn(rng, (T, D), dtype, dev) for _ in range(4))
+    sc = 1 + 0.1 * _randn(rng, (D,), torch.float32, dev)
+    args = (x, res if fused else None, sc, dy, dr if fused else None)
+    n0 = build.LAUNCHES["rmsnorm_bwd"]
+    dx, dscale = rms_ops.rmsnorm_backward(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm_bwd"] == n0 + 1
+    rdx, rdscale = rmsnorm_bwd_ref(*args, eps=eps)
+    _bwd_close(dx, rdx, dtype)
+    _bwd_close(dscale, rdscale, torch.float32)  # float32 whatever the rows' dtype
+    again = rms_ops.rmsnorm_backward(*args, eps=eps)  # no atomics: the same bits
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dscale)
+
+
+def test_wrappers_never_drop_a_gradient(dev):
+    """On CUDA the norm and flash wrappers are autograd Functions over the kernels;
+    the forward-only wrappers refuse inputs that require grad."""
+    rng = np.random.default_rng(7)
+    x, res, dy = (_randn(rng, (4, 6, 256), torch.float32, dev) for _ in range(3))
+    sc = (1 + 0.1 * _randn(rng, (256,), torch.float32, dev)).requires_grad_()
+    xs, rs = x.clone().requires_grad_(), res.clone().requires_grad_()
+    y, r = rms_ops.rmsnorm_residual(xs, rs, sc)
+    gx, gr, gs = torch.autograd.grad((y, r), (xs, rs, sc), (dy, dy))
+    rdx, rds = rmsnorm_bwd_ref(x.view(-1, 256), res.view(-1, 256), sc.detach(), dy.view(-1, 256),
+                               dy.view(-1, 256))
+    assert _err(gx.view(-1, 256), rdx) < 1e-5 and torch.equal(gx, gr) and _err(gs, rds) < 1e-4
+    gx, gs = torch.autograd.grad(rms_ops.rmsnorm(xs, sc), (xs, sc), dy)
+    rdx, rds = rmsnorm_bwd_ref(x.view(-1, 256), None, sc.detach(), dy.view(-1, 256))
+    assert _err(gx.view(-1, 256), rdx) < 1e-5 and _err(gs, rds) < 1e-4
+    q = _randn(rng, (1, 96, 2, 3, 64), torch.float32, dev).requires_grad_()
+    k, v = (_randn(rng, (1, 96, 2, 64), torch.float32, dev).requires_grad_() for _ in range(2))
+    out = fa_ops.flash_attention(q, k, v, window=40)
+    got = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    from repro_torch.models.flash_vjp import flash_attention_vjp
+    want = torch.autograd.grad(flash_attention_vjp(q, k, v, 40, 32, kernels=False), (q, k, v),
+                               torch.ones_like(out))
+    for a, b in zip(got, want):
+        assert _err(a, b) <= 1e-4 * b.abs().max().item()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention_bhsd(q.transpose(1, 2).reshape(1, 6, 96, 64), k.transpose(1, 2),
+                                    v.transpose(1, 2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        dec_ops.decode_attention(q[:, :1].reshape(1, 2, 3, 64), k.transpose(1, 2),
+                                 v.transpose(1, 2), 10)
+    with torch.no_grad():  # serving: no grad, no refusal, no LSE
+        fa_ops.flash_attention(q, k, v, window=40)
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """Two float32 AdamW steps of reduced danube through the flash VJP (S 64 past
+    attn_chunk 16 and the window): the CUDA kernels against the CPU's plain twin."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config("h2o_danube_1p8b").reduced(attn_impl="chunked")
+    data = SyntheticLM(cfg.vocab_size, 64, 2)
+    hist = {}
+    for d in (torch.device("cpu"), dev):
+        tr = Trainer(Model(cfg), ParallelConfig(), TrainConfig(steps=4, warmup_steps=1), d)
+        state = tr.init_state(params=_to(init_params(cfg, 0, torch.device("cpu"), widen_head=False), d))
+        n0 = dict(build.LAUNCHES)
+        _, hist[d.type] = tr.fit(state, data, steps=2, log=lambda *_: None)
+        if d.type == "cuda":
+            assert all(build.LAUNCHES[k] > n0[k] for k in ("flash_attention", "flash_attention_bwd",
+                                                           "rmsnorm", "rmsnorm_residual", "rmsnorm_bwd"))
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), k

@@ -218,3 +218,70 @@ def test_moe_gap_margin_covers_the_bf16_perturbation():
     assert out["routing_diff"] > 0 and out["fp32_err"] <= out["fp32_tol"]
     assert 0 <= out["max_abs_err"] <= out["tolerance"]
     assert 0 < out["drop_frac_published"] < 1  # capacity 1.25 drops, dropless did not
+
+
+def test_phase_bwd_kernels_rehearsal(monkeypatch):
+    """Phase 7's backward kernels at tiny shapes: every row carries the JSON keys;
+    the flash bound counts 10 dh flops a live pair at the bf16 peak."""
+    monkeypatch.setattr(chip_smoke, "time_ms", _host_ms)
+    rec = chip_smoke.phase_bwd_kernels(CPU, danube=(1, 4, 2, 128, 80, 64), qwen=(1, 4, 2, 64, 128, None),
+                                       dh64=(1, 4, 4, 64, 64, None), norms=((48, 256), (16, 512)),
+                                       qk_rows=64, sweeps=False)
+    assert set(rec) == set(chip_smoke.TRAIN_KERNELS)
+    for r in rec.values():
+        for t in [r, *r["extra"]]:
+            assert {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"} <= t.keys()
+            assert t["library_ms"] is not None and t["bound_ms"] > 0
+        assert r["max_abs_err"] == 0.0  # the CPU runs the plain versions against themselves
+    fa = rec["flash_attention_bwd"]
+    assert fa["shape"] == "q (1,4,128,80) kv heads 2 bf16 causal window 64"
+    flops = 10 * 80 * chip_smoke.live_pairs(128, 64) * 4
+    nbytes = (4 * 4 + 4 * 2) * 128 * 80 * 2 + 4 * 128 * 4
+    assert fa["bound_ms"] == chip_smoke.bound(nbytes, flops, torch.bfloat16)[0]
+    assert rec["rmsnorm_bwd"]["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen3_14b"])
+def test_phase_train_parity_rehearsal(arch, monkeypatch):
+    """danube through the flash twin (attn_impl chunked, past its window), qwen3 with
+    its qk-norms. On the CPU the kernel path runs the kernels' plain versions,
+    which still differ from the plain path where the fused residual norm reads
+    the unrounded sum: within the bars, about one floor apart."""
+    monkeypatch.setattr(chip_smoke, "sync", lambda: None)
+    cfg = dataclasses.replace(_tiny(arch), attn_impl="chunked")
+    out = chip_smoke.phase_train_parity(CPU, cfg, batch=1, seq=64)
+    assert 0 < out["loss_err"] <= 2 * out["floor"] and out["worst_leaf_ratio"] <= 2
+    assert set(out["peak_gib"]) == {"none", "selective", "full"}
+
+
+def test_phase_resume_rehearsal(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "CKPT_DIR", tmp_path / "ckpt")
+    cfg = dataclasses.replace(_tiny("h2o_danube_1p8b"), attn_impl="chunked")
+    out = chip_smoke.phase_resume(CPU, cfg, seq=64)
+    assert out["bitwise"] and len(out["losses"]) == 2
+    assert not (tmp_path / "ckpt").exists()  # cleaned up
+
+
+def test_phase_train_run_rehearsal_fails_without_launches():
+    cfg = _tiny("h2o_danube_1p8b")
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_train_run(CPU, cfg, "cpu", batch=2, seq=32, steps=2, warmup=1)
+
+
+def test_training_constants():
+    """The full-width run is danube's SyntheticLM(32000, 6144, 2) for 6 steps, 2 of
+    warm-up; the parity shapes pass danube's window and qwen3-14b's attn_chunk."""
+    danube = chip_smoke.get_config(chip_smoke.TRAIN_RUN["arch"])
+    assert danube.name == "h2o-danube-1.8b" and danube.vocab_size == 32000
+    assert chip_smoke.TRAIN_RUN == dict(arch="h2o_danube_1p8b", batch=2, seq=6144, steps=6,
+                                        remat="selective")
+    assert chip_smoke.TRAIN_PARITY["h2o_danube_1p8b"]["seq"] > danube.sliding_window
+    assert chip_smoke.TRAIN_PARITY["qwen3_14b"]["seq"] > chip_smoke.get_config("qwen3_14b").attn_chunk
+    assert set(chip_smoke.TRAIN_PATH) <= set(chip_smoke.KERNELS) | set(chip_smoke.TRAIN_KERNELS)
+    assert "decode_attention" not in chip_smoke.TRAIN_PATH
+
+
+def test_phase_train_trace_rehearsal(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "sync", lambda: None)
+    out = chip_smoke.phase_train_trace(CPU, _tiny("h2o_danube_1p8b"), batch=2, seq=32)
+    assert out["wall_ms"] > 0 and out["device_ms"] == 0 and out["kernels_ms"] == {}
