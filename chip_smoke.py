@@ -47,8 +47,13 @@ Phases, each of which fails the run with a non-zero exit:
                flash attention's and RMSNorm's, against their plain versions
                (BWD_BAR_NOTE) at h2o-danube's training shape (q (2, 32, 6144,
                80), window 4096), qwen3-14b's and dh 64 at G 1, and sweeps,
-               with the forward kernel's LSE, each timed beside its plain
-               version and PyTorch's backward (SDPA's, F.rms_norm's); (after
+               with the forward kernel's LSE; bf16 at dh 64, 80 and 128 must
+               run the flash backward's tensor-core kernels and float32 and
+               dh 32 its fp32-tile ones (the profiler names them), and a
+               second run of either kernel must give the same bits; each
+               timed beside its plain version and PyTorch's backward (SDPA's,
+               F.rms_norm's: a CUDA graph of forward and backward less one of
+               the forward alone); (after
                phase 6) 2-layer train parity at full width (TRAIN_PARITY,
                TRAIN_NOTE) for danube at 6144 tokens and qwen3-14b at 2048,
                the kernel path's gradients identical under remat none,
@@ -88,6 +93,7 @@ from repro_torch.kernels.decode_attention import decode_attention as dec_kernel 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref, attention_ref,  # noqa: E402
                                                      flash_attention_bwd_ref)
@@ -346,33 +352,52 @@ def live_pairs(S: int, window: int | None) -> int:
 
 
 def device_kernels(fn) -> set[str]:
-    """Names of the device kernels that one call of `fn` launches (torch.profiler)."""
+    """Names of the device kernels that a call of `fn` launches (torch.profiler).
+
+    `fn` runs twice while the profiler records: on the card it has been seen
+    to miss the first kernels launched right after it starts (a flash
+    backward at danube's shape came back as its last kernel alone)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
+        for _ in range(2):
+            fn()
+            sync()
     return {e.key for e in prof.key_averages() if e.device_type != DeviceType.CPU}
 
 
-def _on_tensor_cores(dev, fn, kernel, name: str, dh: int) -> None:
-    """bf16 at dh 64, 80 or 128 must take the tensor-core kernel: the wrapper must
+def _on_tensor_cores(dev, fn, kernel, name: str | tuple[str, ...], dh: int) -> None:
+    """bf16 at dh 64, 80 or 128 must take the tensor-core kernels: the wrapper must
     route it there (the C launcher refuses a plan other than the wrapper's), and
-    on the card the profiler, when it records the call, must name that kernel
-    (`name<dh>`). A profiler session that records no device kernel at all says
-    nothing either way, and is logged as such."""
+    on the card the profiler, when it records the call, must name each of those
+    kernels (`name<dh>`). A profiler session that records no device kernel at
+    all says nothing either way, and is logged as such."""
     if dh not in (64, 80, 128):
         return
     if not kernel.on_tensor_cores(torch.bfloat16, dh):
         raise AssertionError(f"bf16 dh {dh} is routed off the tensor-core path")
     if dev.type != "cuda":  # the CPU rehearsal runs the plain versions
         return
+    wanted = (name,) if isinstance(name, str) else name
     names = device_kernels(fn)
-    if names and not any(f"{name}<{dh}>" in n for n in names):
+    missing = [w for w in wanted if not any(f"{w}<{dh}>" in n for n in names)]
+    if names and missing:
         raise AssertionError(f"bf16 dh {dh} ran off the tensor-core path: {sorted(names)}")
-    log(f"[kernels] {name}<{dh}>: routed there; profiler: "
+    log(f"[kernels] {', '.join(f'{w}<{dh}>' for w in wanted)}: routed there; profiler: "
         + ("ran" if names else "recorded no device kernel in this session"))
+
+
+def _on_fp32_tiles(dev, fn, dt, dh: int) -> None:
+    """float32, and bf16 at dh 32, must take the flash backward's fp32-tile kernels
+    (`fabwd::dkdv_kernel`, `fabwd::dq_kernel`) and no tensor-core kernel."""
+    if fa_bwd.on_tensor_cores(dt, dh):
+        raise AssertionError(f"{dt} dh {dh} is routed to the tensor cores")
+    if dev.type != "cuda":
+        return
+    names = device_kernels(fn)
+    if names and (not any("dkdv_kernel<" in n for n in names) or any("_tc_kernel" in n for n in names)):
+        raise AssertionError(f"{dt} dh {dh} ran off the fp32-tile kernels: {sorted(names)}")
 
 
 def _log_floor(name: str, label: str, ref, ref32) -> None:
@@ -1034,6 +1059,23 @@ def _bwd_check(name, label, outs, refs, dt, rec) -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
 
+def _same_bits(name, label, fn, first) -> None:
+    """A second run of a backward kernel must give the first run's bits: neither
+    kernel uses atomics, so remat policies and resumed runs are bit for bit."""
+    again = fn()
+    if not all(torch.equal(a, b) for a, b in zip(again, first)):
+        raise AssertionError(f"{name} {label}: two runs differ")
+
+
+def _backward_ms(fwd, inputs, grad, iters: int) -> float:
+    """Device milliseconds of PyTorch's backward of `fwd()` with respect to
+    `inputs` (the library yardstick): a CUDA graph of forward + backward
+    (`torch.autograd.grad`) less a CUDA graph of the same forward alone, both
+    timed as the kernels are."""
+    both = time_ms(lambda: torch.autograd.grad(fwd(), inputs, grad), iters=iters, warmup=1, graph=True)
+    return both - time_ms(fwd, iters=iters, warmup=1, graph=True)
+
+
 def _flash_bwd_case(rng, dev, B, Hq, Hkv, S, dh, window, dt):
     """q, k, v, dout at one shape, the forward kernel's out and LSE, and the plain
     LSE it is held to."""
@@ -1059,9 +1101,12 @@ def _flash_bwd_timing(rng, dev, rec, B, Hq, Hkv, S, dh, window) -> dict:
         raise AssertionError(f"flash forward LSE {label}: {lse_err}")
     kern = lambda: fa_ops.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, window=window,  # noqa: E731
                                                    chunk=chunk)
+    _on_tensor_cores(dev, kern, fa_bwd, ("dkdv_tc_kernel", "dq_tc_kernel"), dh)
     ref = flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window, chunk=chunk)
-    _bwd_check("flash_attention_bwd", label, kern(), ref, bf, rec)
-    del ref
+    got = kern()
+    _bwd_check("flash_attention_bwd", label, got, ref, bf, rec)
+    _same_bits("flash_attention_bwd", label, kern, got)
+    del ref, got
     plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window,
                                                     chunk=chunk), iters=1, warmup=1)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1069,13 +1114,11 @@ def _flash_bwd_timing(rng, dev, rec, B, Hq, Hkv, S, dh, window) -> dict:
     if window is not None:
         i = torch.arange(S, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, is_causal=mask is None,
-                                          enable_gqa=True)
-    library = time_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dout, retain_graph=True),
-                      iters=3, warmup=1)
-    del sdpa
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,  # noqa: E731
+                                                  is_causal=mask is None, enable_gqa=True)
     nbytes = (4 * B * Hq + 4 * B * Hkv) * S * dh * 2 + B * Hq * S * 4
-    return timing(label, time_ms(kern, iters=5, warmup=1, graph=True), plain, library, nbytes,
+    return timing(label, time_ms(kern, iters=5, warmup=1, graph=True), plain,
+                  _backward_ms(sdpa, (qs, ks, vs), dout, iters=3), nbytes,
                   10 * dh * live_pairs(S, window) * B * Hq, bf)
 
 
@@ -1086,15 +1129,16 @@ def _norm_bwd_timing(rng, dev, rec, rows, d) -> dict:
     x, dy = _randn(rng, (rows, d), bf, dev), _randn(rng, (rows, d), bf, dev)
     sc = 1 + 0.1 * _randn(rng, (d,), torch.float32, dev)  # see NORM_GAIN_NOTE
     label = f"x, dy ({rows},{d}) bf16"
-    _bwd_check("rmsnorm_bwd", label, rms_ops.rmsnorm_backward(x, None, sc, dy),
-               rmsnorm_bwd_ref(x, None, sc, dy), bf, rec)
+    kern = lambda: rms_ops.rmsnorm_backward(x, None, sc, dy)  # noqa: E731
+    got = kern()
+    _bwd_check("rmsnorm_bwd", label, got, rmsnorm_bwd_ref(x, None, sc, dy), bf, rec)
+    _same_bits("rmsnorm_bwd", label, kern, got)
     plain = time_ms(lambda: rmsnorm_bwd_ref(x, None, sc, dy))
     xs, ws = x.detach().clone().requires_grad_(), sc.to(bf).requires_grad_()
-    y = F.rms_norm(xs, (d,), ws, 1e-5)
-    library = time_ms(lambda: torch.autograd.grad(y, (xs, ws), dy, retain_graph=True), iters=20)
-    return timing(label, time_ms(lambda: rms_ops.rmsnorm_backward(x, None, sc, dy), iters=50,
-                                 graph=True), plain,
-                  library, 3 * rows * d * 2 + 2 * d * 4, 8 * rows * d, bf)
+    norm = lambda: F.rms_norm(xs, (d,), ws, 1e-5)  # noqa: E731
+    return timing(label, time_ms(kern, iters=50, graph=True), plain,
+                  _backward_ms(norm, (xs, ws), dy, iters=20), 3 * rows * d * 2 + 2 * d * 4,
+                  8 * rows * d, bf)
 
 
 def phase_bwd_kernels(dev, *, danube=(2, 32, 8, 6144, 80, 4096), qwen=(4, 40, 8, 1024, 128, None),
@@ -1116,23 +1160,31 @@ def phase_bwd_kernels(dev, *, danube=(2, 32, 8, 6144, 80, 4096), qwen=(4, 40, 8,
                      (2, 4, 1, 384, 64, 100)):
             for dt in (torch.float32, torch.bfloat16):
                 (q, k, v, out, dout, lse), _, chunk = _flash_bwd_case(rng, dev, *case, dt)
-                grads = fa_ops.flash_attention_bwd_bhsd(q, k, v, out, dout, lse, window=case[5],
-                                                        chunk=chunk)
-                _bwd_check("flash_attention_bwd", f"B{case[0]} Hq{case[1]} Hkv{case[2]} S{case[3]} "
-                           f"dh{case[4]} win{case[5]} {str(dt)[6:]}", grads,
+                kern = lambda: fa_ops.flash_attention_bwd_bhsd(q, k, v, out, dout, lse,  # noqa: E731
+                                                               window=case[5], chunk=chunk)
+                if fa_bwd.on_tensor_cores(dt, case[4]):
+                    _on_tensor_cores(dev, kern, fa_bwd, ("dkdv_tc_kernel", "dq_tc_kernel"), case[4])
+                else:
+                    _on_fp32_tiles(dev, kern, dt, case[4])
+                label = (f"B{case[0]} Hq{case[1]} Hkv{case[2]} S{case[3]} dh{case[4]} win{case[5]} "
+                         f"{str(dt)[6:]}")
+                grads = kern()
+                _bwd_check("flash_attention_bwd", label, grads,
                            flash_attention_bwd_ref(q, k, v, out, dout, lse, window=case[5],
                                                    chunk=chunk), dt, rec["flash_attention_bwd"])
+                _same_bits("flash_attention_bwd", label, kern, grads)
     for rows, d, eps, fused, dt in [(r, dd, 1e-5, f, torch.bfloat16) for r, dd in norms
                                     for f in (False, True)] + [(qk_rows, 128, 1e-6, False, torch.bfloat16)] \
-            + ([(300, 256, 1e-5, True, torch.float32), (33, 100, 1e-5, False, torch.float32)]
-               if sweeps else []):
+            + ([(300, 256, 1e-5, True, torch.float32), (33, 100, 1e-5, False, torch.float32),
+                (33, 100, 1e-5, True, torch.bfloat16)] if sweeps else []):  # bf16 d 100: the scalar route
         x, res, dy, dr = (_randn(rng, (rows, d), dt, dev) for _ in range(4))
         sc = 1 + 0.1 * _randn(rng, (d,), torch.float32, dev)
         args = (x, res if fused else None, sc, dy, dr if fused else None)
-        _bwd_check("rmsnorm_bwd", f"({rows},{d}) {'fused' if fused else 'plain'} eps {eps:g} "
-                   f"{str(dt)[6:]}", rms_ops.rmsnorm_backward(*args, eps=eps),
-                   rmsnorm_bwd_ref(*args, eps=eps),
-                   dt, rec["rmsnorm_bwd"])
+        label = f"({rows},{d}) {'fused' if fused else 'plain'} eps {eps:g} {str(dt)[6:]}"
+        kern = lambda: rms_ops.rmsnorm_backward(*args, eps=eps)  # noqa: E731
+        got = kern()
+        _bwd_check("rmsnorm_bwd", label, got, rmsnorm_bwd_ref(*args, eps=eps), dt, rec["rmsnorm_bwd"])
+        _same_bits("rmsnorm_bwd", label, kern, got)
     rec["flash_attention_bwd"].update(_flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *danube))
     rec["flash_attention_bwd"]["extra"] = [
         _flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *qwen),
@@ -1144,7 +1196,8 @@ def phase_bwd_kernels(dev, *, danube=(2, 32, 8, 6144, 80, 4096), qwen=(4, 40, 8,
         for t in [r, *r.get("extra", [])]:
             log(f"[bwd] {name} at {t['shape']}: kernel {t['ms']:.4f} ms ({t['rate']}, "
                 f"{100 * t['share_of_bound']:.1f}% of bound), plain {t['plain_ms']:.4f} ms, "
-                f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                f"library {t['library_ms']:.4f} ms (kernel / library {t['ms'] / t['library_ms']:.3f}), "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return rec
 
 
@@ -1321,9 +1374,9 @@ def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", top=10)
         log(f"[train-trace]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d} calls  {e.key[:90]}")
     ours = {}
     for e in events:  # the kernels of csrc/, by their C++ names
-        for name in ("flash_attention_tc_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel",
-                     "rmsnorm_kernel", "rmsnorm_residual_kernel", "rmsnorm_bwd_kernel",
-                     "reduce_partials_kernel"):
+        for name in ("flash_attention_tc_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_kernel",
+                     "dq_kernel", "delta_kernel", "rmsnorm_kernel", "rmsnorm_residual_kernel",
+                     "rmsnorm_bwd_kernel", "reduce_partials_kernel"):
             if name in e.key:
                 ours[name] = ours.get(name, 0.0) + e.self_device_time_total / 1e3
     log("[train-trace]   the port's kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()))
@@ -1341,7 +1394,9 @@ def main() -> None:
     dev = torch.device("cuda")
     phase_build()
     rec = phase_kernels(dev)
+    t7 = time.perf_counter()
     rec.update(phase_bwd_kernels(dev))
+    t7 = time.perf_counter() - t7  # phase 7's seconds: its kernel part here, its training part below
     for arch in ARCHS:
         if arch in NOT_ON_ONE_CARD:
             log(f"[parity] {arch} left out: {NOT_ON_ONE_CARD[arch]}")
@@ -1370,6 +1425,7 @@ def main() -> None:
             f"{1e3 * r['decode_seconds'] / max(r['decode_steps'], 1):14.3f}   "
             f"{(r['max_memory_allocated'] or 0) / 2**30:8.2f}   "
             f"{t['wall_ms']:.3f}, {t['device_ms']:.3f}, {1 - t['device_ms'] / t['wall_ms']:.3f}")
+    t_train = time.perf_counter()
     for arch, shape in TRAIN_PARITY.items():
         phase_train_parity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed,
                            **shape)
@@ -1382,7 +1438,8 @@ def main() -> None:
     phase_train_trace(dev, run_cfg, batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"],
                       remat=TRAIN_RUN["remat"])
     runs = {**{c: r["launches"] for c, r in serves.items()}, f"train {run_cfg.name}": train["launches"]}
-    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s")
+    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 "
+        f"{t7 + time.perf_counter() - t_train:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
     # over the serve runs and the training run
     sources = {**KERNELS, **TRAIN_KERNELS}

@@ -6,6 +6,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #define NEG_INF (-1e30f)
 
 enum DtypeCode { kF32 = 0, kBF16 = 1 };
@@ -54,4 +56,50 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   v = lane < n_warps ? scratch[lane] : 0.f;
   return warp_sum(v);
+}
+
+// V elements of T as one load: 16 bytes (8 bf16 or 4 fp32) on the vector path, one element on
+// the scalar path (V = 1).
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// One 16-byte access (ld/st.global.v4) for a vector pack, a plain one for a scalar.
+template <typename P>
+__device__ __forceinline__ P load_pack(const P* p) {
+  if constexpr (sizeof(P) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    P out;
+    memcpy(&out, &raw, 16);
+    return out;
+  } else {
+    return *p;
+  }
+}
+
+template <typename P>
+__device__ __forceinline__ void store_pack(P* p, const P& v) {
+  if constexpr (sizeof(P) == 16) {
+    uint4 raw;
+    memcpy(&raw, &v, 16);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+    *p = v;
+  }
+}
+
+// The V gains of load i (elements i V ..), float32, in 16-byte loads where V allows.
+template <int V>
+__device__ __forceinline__ void load_gains(const float* scale, int i, float (&sc)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int f = 0; f < V / 4; ++f) {
+      const float4 s4 = reinterpret_cast<const float4*>(scale + i * V)[f];
+      sc[4 * f] = s4.x, sc[4 * f + 1] = s4.y, sc[4 * f + 2] = s4.z, sc[4 * f + 3] = s4.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) sc[e] = scale[i * V + e];
+  }
 }

@@ -17,38 +17,7 @@
 //   here. Arithmetic as the TPU kernel: inv = rsqrt(ss / d + eps), y = x *
 //   inv * scale, one rounding. The TPU kernel's 256-row VMEM tiles have no
 //   use here.
-#include <cstring>
-
 #include "common.cuh"
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-// One 16-byte access (ld/st.global.v4) for a vector pack, a plain one for a scalar.
-template <typename P>
-__device__ __forceinline__ P load_pack(const P* p) {
-  if constexpr (sizeof(P) == 16) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    P out;
-    memcpy(&out, &raw, 16);
-    return out;
-  } else {
-    return *p;
-  }
-}
-
-template <typename P>
-__device__ __forceinline__ void store_pack(P* p, const P& v) {
-  if constexpr (sizeof(P) == 16) {
-    uint4 raw;
-    memcpy(&raw, &v, 16);
-    *reinterpret_cast<uint4*>(p) = raw;
-  } else {
-    *p = v;
-  }
-}
 
 template <typename T, int V, int VPT>
 __global__ void __launch_bounds__(1024)
@@ -88,16 +57,7 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __re
     const int i = lane + j * lanes;
     if (i < nvec) {
       float sc[V];
-      if constexpr (V % 4 == 0) {
-#pragma unroll
-        for (int f = 0; f < V / 4; ++f) {
-          const float4 s4 = reinterpret_cast<const float4*>(scale + i * V)[f];
-          sc[4 * f] = s4.x, sc[4 * f + 1] = s4.y, sc[4 * f + 2] = s4.z, sc[4 * f + 3] = s4.w;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) sc[e] = scale[i * V + e];
-      }
+      load_gains<V>(scale, i, sc);
       P out;
 #pragma unroll
       for (int e = 0; e < V; ++e) out.v[e] = from_f32<T>(to_f32(xv[j].v[e]) * inv * sc[e]);

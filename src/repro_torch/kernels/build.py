@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, one `nvcc` call compiles every `csrc/*.cu` for `sm_90a` into
-one shared library with a plain C interface, in `build/kernels/<hash>/` at
-the root of the checkout (listed in `.gitignore`). The hash covers the
-sources and the flags, so an edited source builds anew. No PyTorch header is
-included, so the build takes seconds. The library is bound with `ctypes`:
-every pointer and the stream are `c_void_p`, every launcher returns the
-`cudaError_t` of its launch, and `check` raises on anything but 0.
+At first use, `nvcc` compiles every `csrc/*.cu` for `sm_90a` (one process a
+source, all in parallel) and links them into one shared library with a plain
+C interface, in `build/kernels/<hash>/` at the root of the checkout (listed
+in `.gitignore`). The hash covers the sources and the flags, so an edited
+source builds anew. No PyTorch header is included, so the build takes
+seconds. The library is bound with `ctypes`: every pointer and the stream
+are `c_void_p`, every launcher returns the `cudaError_t` of its launch, and
+`check` raises on anything but 0.
 
 `LAUNCHES` counts the launches of each kernel. Only a wrapper that has just
 launched its kernel adds to it, so a run can show that it went through the
@@ -54,12 +55,13 @@ SIGNATURES = {
     "launch_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, dout, lse, delta (scratch), dq, dk, dv, B, Hq, Hkv, S, dh,
-    # the 24 (b, h, s) strides of q, k, v, o, dout, dq, dk, dv, window, scale,
-    # dtype, stream
-    "launch_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_LP, _I, _F, _I, _P],
+    # the 24 (b, h, s) strides of q, k, v, o, dout, dq, dk, dv, TMA boxes (dh
+    # columns, query rows, keys; zeros: no TMA), window, scale, dtype, stream
+    "launch_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_LP, _I, _I, _I, _I, _F, _I, _P],
     # x, res (null: none), scale, dy, dr (null: none), dx, partial sums
-    # (scratch), dscale, rows, d, eps, dtype, lanes, blocks, stream
-    "launch_rmsnorm_bwd": [_P] * 8 + [_L, _I, _F, _I, _I, _I, _P],
+    # (scratch), dscale, rows, d, eps, dtype, the launch plan (elements per
+    # load, lanes per row, rows per block, loads per thread, blocks), stream
+    "launch_rmsnorm_bwd": [_P] * 8 + [_L, _I, _F, _I] + [_I] * 5 + [_P],
     # q, k, v, o, B, Hkv, G, T, dh, k strides (b, h, t), v strides, n_valid,
     # the launch plan (n_split, tiles per CTA, ring stages, smem bytes, TMA box
     # dh columns and slots, slot extent), scale, dtype, stream
@@ -100,20 +102,35 @@ def _digest() -> str:
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile the kernels if needed: (library path, build seconds, nvcc log)."""
+    """Compile the kernels if needed: (library path, build seconds, nvcc log).
+
+    One `nvcc -c` a source, all started together, then one link: the build
+    takes as long as the slowest source, not their sum."""
     out_dir = BUILD_ROOT / _digest()
     lib, log = out_dir / "libkernels.so", out_dir / "nvcc.log"
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libkernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
+    tag = os.getpid()  # another process may build the same sources at once
+    nvcc, compile_flags = _nvcc(), [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    outputs = [proc.communicate()[0] for proc in procs]
+    text = "".join(outputs)
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{text}")
+    tmp = out_dir / f"libkernels.{tag}.so"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)], capture_output=True,
+                          text=True)
     dt = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
+    text += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+        raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{text}")
+    for obj in objs:
+        obj.unlink()
     log.write_text(text)
     os.replace(tmp, lib)  # atomic: another process building at once finds a whole library or none
     return lib, dt, text

@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kernel
+from torch_replay import gather, tma_box
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]
@@ -161,25 +162,6 @@ def test_decode_attention_dh80_vs_pallas_interpret(nv):
 
 
 # ------------------------------------- the kernels' addressing, replayed on the CPU
-def _gather(t: torch.Tensor, shape, strides) -> torch.Tensor:
-    """What a kernel reads from `t`'s storage at base + sum(i * stride), unit stride last."""
-    return torch.as_strided(t, shape, (*strides, 1), t.storage_offset())
-
-
-def _tma_box(t: torch.Tensor, dims, byte_strides, box, coord) -> torch.Tensor:
-    """What a TMA load puts in shared memory: the `box` (innermost first) of the
-    map (`dims`, outer `byte_strides`) over `t`'s storage at `coord`, with zeros
-    for every element past `dims`. Returned outermost first: (box[3], .., box[0])."""
-    flat = torch.as_strided(t, (t.untyped_storage().nbytes() // t.element_size(),), (1,), 0)
-    steps = (1, *(s // t.element_size() for s in byte_strides))
-    off = torch.full((), t.storage_offset(), dtype=torch.long)
-    inside = torch.ones((), dtype=torch.bool)
-    for axis in range(4):  # broadcast (box[3], box[2], box[1], box[0])
-        c = (coord[axis] + torch.arange(box[axis])).view([-1 if a == axis else 1 for a in (3, 2, 1, 0)])
-        off, inside = off + c * steps[axis], inside & (c < dims[axis])
-    return torch.where(inside, flat[torch.where(inside, off, 0)], torch.zeros((), dtype=t.dtype))
-
-
 def _replay_flash(q, k, v, out, args):
     """The flash kernel's arithmetic, reading and writing only through `launch_args`.
 
@@ -193,19 +175,19 @@ def _replay_flash(q, k, v, out, args):
     st, (box_d, box_q, box_k), window, scale = rest[:12], rest[12:15], rest[15], rest[16]
     G = Hq // Hkv
     if box_d == 0:
-        qs = _gather(q, (B, Hq, S, dh), st[0:3])
-        ks, vs = _gather(k, (B, Hkv, S, dh), st[3:6]), _gather(v, (B, Hkv, S, dh), st[6:9])
+        qs = gather(q, (B, Hq, S, dh), st[0:3])
+        ks, vs = gather(k, (B, Hkv, S, dh), st[3:6]), gather(v, (B, Hkv, S, dh), st[6:9])
         kh, vh = ks[:, torch.arange(Hq) // G], vs[:, torch.arange(Hq) // G]
         s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), kh.float()) * scale
         i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
         ok = (j <= i) & ((j > i - window) if window > 0 else True)
         p = torch.softmax(torch.where(ok, s, torch.tensor(-1e30)), -1)
-        _gather(out, (B, Hq, S, dh), st[9:12]).copy_(torch.einsum("bhqk,bhkd->bhqd", p, vh.float()))
+        gather(out, (B, Hq, S, dh), st[9:12]).copy_(torch.einsum("bhqk,bhkd->bhqd", p, vh.float()))
         return
 
     def tile(t, heads, strides, rows, pos):  # (B, heads, rows, dh) from ceil(dh / box_d) boxes
         dims, byte_strides = (dh, heads, S, B), [x * t.element_size() for x in (strides[1], strides[2], strides[0])]
-        boxes = [_tma_box(t, dims, byte_strides, (box_d, heads, rows, B), (c, 0, pos, 0))
+        boxes = [tma_box(t, dims, byte_strides, (box_d, heads, rows, B), (c, 0, pos, 0))
                  for c in range(0, dh, box_d)]
         whole = torch.cat(boxes, -1).transpose(1, 2)
         assert not whole[..., dh:].any()  # dh 80: the padded columns arrive as zeros
@@ -216,10 +198,10 @@ def _replay_flash(q, k, v, out, args):
     k_all = torch.cat([tile(k, Hkv, st[3:6], box_k, kb * box_k) for kb in range(n_kb)], 2)
     v_all = torch.cat([tile(v, Hkv, st[6:9], box_k, kb * box_k) for kb in range(n_kb)], 2)
     for whole, t, heads, sts in ((q_all, q, Hq, st[0:3]), (k_all, k, Hkv, st[3:6]), (v_all, v, Hkv, st[6:9])):
-        assert torch.equal(whole[:, :, :S], _gather(t, (B, heads, S, dh), sts))
+        assert torch.equal(whole[:, :, :S], gather(t, (B, heads, S, dh), sts))
         assert not whole[:, :, S:].any()  # zero fill past S
     k_all, v_all = k_all[:, torch.arange(Hq) // G], v_all[:, torch.arange(Hq) // G]
-    o = _gather(out, (B, Hq, S, dh), st[9:12])
+    o = gather(out, (B, Hq, S, dh), st[9:12])
     wg_rows = 64
     for qb in range(n_qb):
         q0 = qb * box_q
@@ -405,18 +387,18 @@ def _replay_decode(q, k, v, args):
     if box_d:
         def tiles_of(t, st):  # (B, Hkv, n_tiles * TILE, dh) from ceil(dh / box_d) boxes a tile
             dims, bs = (dh, Hkv, extent, B), [x * t.element_size() for x in (st[1], st[2], st[0])]
-            whole = torch.cat([torch.cat([_tma_box(t, dims, bs, (box_d, Hkv, box_slots, B), (c, 0, j * box_slots, 0))
+            whole = torch.cat([torch.cat([tma_box(t, dims, bs, (box_d, Hkv, box_slots, B), (c, 0, j * box_slots, 0))
                                           for c in range(0, dh, box_d)], -1)
                                for j in range(n_tiles)], 1).transpose(1, 2)
             assert whole.shape[-1] == dec_kernel.tile_cols(dh) and (whole[..., dh:] == 0).all()
             return whole[..., :dh]  # dh 80: the padded columns arrive as zeros
         K, V = tiles_of(k, kst), tiles_of(v, vst)
         for whole, t, st in ((K, k, kst), (V, v, vst)):
-            assert torch.equal(whole[:, :, :nv], _gather(t, (B, Hkv, nv, dh), st))
+            assert torch.equal(whole[:, :, :nv], gather(t, (B, Hkv, nv, dh), st))
             assert (whole[:, :, nv:] == 0).all()  # zero fill past n_valid, whatever the cache holds
     else:
         K, V = torch.zeros(padded, dtype=k.dtype), torch.zeros(padded, dtype=v.dtype)
-        K[:, :, :nv], V[:, :, :nv] = _gather(k, (B, Hkv, nv, dh), kst), _gather(v, (B, Hkv, nv, dh), vst)
+        K[:, :, :nv], V[:, :, :nv] = gather(k, (B, Hkv, nv, dh), kst), gather(v, (B, Hkv, nv, dh), vst)
     exp = torch.exp2 if box_d else torch.exp
     parts = []
     for t0, n_t in dec_kernel.cta_tiles(plan, nv):
