@@ -46,23 +46,34 @@ Phases, each of which fails the run with a non-zero exit:
   7. train   - the training path: (after phase 3) the two backward kernels,
                flash attention's and RMSNorm's, against their plain versions
                (BWD_BAR_NOTE) at h2o-danube's training shape (q (2, 32, 6144,
-               80), window 4096), qwen3-14b's and dh 64 at G 1, and sweeps,
+               80), window 4096), qwen3-14b's, dh 64 at G 1, zamba2-1.2b's
+               (q (2, 32, 4096, 64), 32 kv heads) and deepseek-moe-16b's (q
+               (2, 16, 4096, 128), 16 kv heads) training shapes, and sweeps,
                with the forward kernel's LSE; bf16 at dh 64, 80 and 128 must
                run the flash backward's tensor-core kernels and float32 and
                dh 32 its fp32-tile ones (the profiler names them), and a
-               second run of either kernel must give the same bits; each
-               timed beside its plain version and PyTorch's backward (SDPA's,
-               F.rms_norm's: a CUDA graph of forward and backward less one of
-               the forward alone); (after
-               phase 6) 2-layer train parity at full width (TRAIN_PARITY,
-               TRAIN_NOTE) for danube at 6144 tokens and qwen3-14b at 2048,
-               the kernel path's gradients identical under remat none,
-               selective and full; a 2-layer danube Trainer resumed from a
-               checkpoint; and h2o-danube at full width and depth trained 6
-               steps through `launch.train.run` (TRAIN_RUN): step time,
-               tokens/s, MFU, peak memory, every kernel of the path launched;
-               then one such step traced (device busy time, idle share, top
-               kernels).
+               second run of either kernel must give the same bits; the
+               RMSNorm backward plain and fused at zamba2's and deepseek's
+               rows (8192, 2048) too; each timed beside its plain version and
+               PyTorch's backward (SDPA's, F.rms_norm's: a CUDA graph of
+               forward and backward less one of the forward alone); (after
+               phase 6) train parity at full width (TRAIN_PARITY, TRAIN_NOTE)
+               for danube at 6144 tokens and qwen3-14b at 2048 (2 layers),
+               zamba2 at 7 layers (a segment and a tail) at 4096, and
+               deepseek at 2 layers (the dense layer, an MoE layer) at 2048,
+               in float32 (routing identical, TRAIN_F32_TOL) and in bf16
+               routing-aware (TRAIN_ROUTING_NOTE); the kernel path's loss and
+               gradients identical under remat none, selective and full for
+               each of those and for rwkv6-7b at 2 layers (REMAT_ONLY), with
+               each policy's peak memory; a 2-layer danube Trainer resumed
+               from a checkpoint; and the training runs through
+               `launch.train.run` (TRAIN_RUNS): h2o-danube and zamba2-1.2b at
+               full width and depth, deepseek-moe-16b at full width and 4
+               layers, rwkv6-7b at full width and depth with int8 moments:
+               step time, tokens/s, MFU (MFU_NOTE), peak memory, the MoE
+               metrics, every kernel of each path launched and no other;
+               then one step of each traced (device busy time, idle share,
+               top kernels).
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -105,9 +116,9 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch.serve import run as serve_run  # noqa: E402
 from repro_torch.launch.train import run as train_run  # noqa: E402
 from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
-from repro_torch.models.params import layer_params  # noqa: E402
-from repro_torch.models.transformer import (Model, _apply_mamba_layer,  # noqa: E402
-                                            _apply_rwkv_layer)
+from repro_torch.models.params import _walk, layer_params, param_defs  # noqa: E402
+from repro_torch.models.transformer import (AUX_KEYS, Model, _apply_mamba_layer,  # noqa: E402
+                                            _apply_rwkv_layer, saved_record)
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.train.tree import paths  # noqa: E402
@@ -203,19 +214,53 @@ TRAIN_KERNELS = {
 # bf16 relative error (norm of the difference over the norm of the plain output)
 # <= REL_TOL, as ATTN_BAR_NOTE's: both compute in float32 and round once.
 BWD_F32_TOL = 1e-4
-# TRAIN_NOTE: phase 7's 2-layer train parity holds the kernel path's loss and
-# every gradient leaf to the plain path in bf16, against twice the bf16 floor
-# (the plain bf16 path against the plain float32 path): per leaf by relative
-# error (norm of the difference over the norm of the float32 leaf); the loss by
-# its mean per-token CE, whose floor is the mean |CE difference| per token (a
-# mean moves by at most that, so the same triangle argument as phase_parity's
-# holds for it).
-TRAIN_PARITY = {"h2o_danube_1p8b": dict(batch=1, seq=6144), "qwen3_14b": dict(batch=1, seq=2048)}
-# the full-width, full-depth training run: SyntheticLM(32000, 6144, 2), 6 steps,
-# the first TRAIN_WARMUP of them left out of the step time
-TRAIN_RUN = dict(arch="h2o_danube_1p8b", batch=2, seq=6144, steps=6, remat="selective")
-TRAIN_WARMUP = 2
-# the kernels of the training path (h2o-danube: RMSNorm, no qk-norm)
+# TRAIN_NOTE: phase 7's train parity holds the kernel path's loss and every
+# gradient leaf to the plain path in bf16, against twice the bf16 floor (the
+# plain bf16 path against the plain float32 path): per leaf by relative error
+# (norm of the difference over the norm of the float32 leaf); the loss by its
+# mean per-token CE, whose floor is the mean |CE difference| per token (a mean
+# moves by at most that, so the same triangle argument as phase_parity's holds
+# for it).
+# TRAIN_F32_TOL: an MoE config's train parity in float32, where both paths must
+# route every token alike, holds the loss and every gradient leaf by relative
+# error (as TRAIN_NOTE's) within BWD_F32_TOL: the two paths compute the same
+# function and differ only in the order of their sums (the kernels' reductions
+# over keys and rows), each rounding at float32's 6e-8, and each backward
+# kernel alone is held to BWD_F32_TOL of its output's size; a gradient leaf is a
+# sum over the tokens of products of such outputs, which averages those
+# differences rather than adding them.
+TRAIN_F32_TOL = BWD_F32_TOL
+# TRAIN_ROUTING_NOTE: in bf16 a few tokens may take another expert on one path
+# than on another (ROUTING_NOTE), and a gradient sums over every token. So the
+# bf16 MoE train parity finds the tokens routed differently by any of the
+# kernel, plain and plain float32 paths (each must be a near tie, its float32
+# gap under MOE_GAP_MARGIN), leaves the positions they reach out of the loss
+# (label -1), and holds TRAIN_NOTE there. A token so left out still reaches the
+# gradients through the load-balance loss, whose expert counts weight every
+# token's router probabilities: the routers' gradients and, through them, the
+# leaves before the routers (the embedding, the head layers, the MoE layers'
+# attention and norms). Where any token differs, only the other leaves (the
+# experts, routed and shared, the final norm and the head: MOE_UNREACHED) are
+# compared; where none does, every leaf. Both runs at dropless capacity (C >= T),
+# as phase 4's, so that one token's routing cannot drop another.
+MOE_UNREACHED = ("layers/moe/wi", "layers/moe/wg", "layers/moe/wo", "layers/moe/shared/",
+                 "final_norm/", "lm_head/")
+TRAIN_PARITY = {"h2o_danube_1p8b": dict(batch=1, seq=6144), "qwen3_14b": dict(batch=1, seq=2048),
+                "zamba2_1p2b": dict(batch=1, seq=4096), "deepseek_moe_16b": dict(batch=1, seq=2048)}
+# configs held to remat identity alone (no kernel on their path: their two paths are one)
+REMAT_ONLY = {"rwkv6_7b": dict(batch=1, seq=4096)}
+# the training runs, each SyntheticLM(vocab, seq, batch) for `steps` steps, the first
+# `warmup` left out of the step time; `layers` cuts the depth (deepseek-moe-16b: the
+# dense layer and 3 of its 27 MoE layers, as its state at full depth, ~197 GB, does
+# not fit one card); rwkv6-7b with JAX's policy for it, remat full (`repro.launch.
+# dryrun.ARCH_TRAIN_OVERRIDES`) and int8 moments
+TRAIN_RUNS = {
+    "h2o_danube_1p8b": dict(batch=2, seq=6144, steps=6, warmup=2, remat="selective"),
+    "zamba2_1p2b": dict(batch=2, seq=4096, steps=6, warmup=2, remat="selective"),
+    "deepseek_moe_16b": dict(layers=4, batch=2, seq=4096, steps=6, warmup=2, remat="selective"),
+    "rwkv6_7b": dict(batch=1, seq=4096, steps=4, warmup=1, remat="full", optimizer="adamw8bit"),
+}
+# the kernels of a training path (h2o-danube's, zamba2's, deepseek's: RMSNorm, no qk-norm)
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_residual", "rmsnorm_bwd")
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
@@ -1122,36 +1167,51 @@ def _flash_bwd_timing(rng, dev, rec, B, Hq, Hkv, S, dh, window) -> dict:
                   10 * dh * live_pairs(S, window) * B * Hq, bf)
 
 
-def _norm_bwd_timing(rng, dev, rec, rows, d) -> dict:
-    """The RMSNorm backward (the plain norm's: ln1, final_norm) in bf16 at (rows, d):
-    checked, then timed beside its plain version and `F.rms_norm`'s backward."""
+def _norm_bwd_timing(rng, dev, rec, rows, d, fused=False) -> dict:
+    """The RMSNorm backward in bf16 at (rows, d), of the plain norm (ln1, final_norm)
+    or, `fused`, of the residual-add norm (with the cotangent of its sum r):
+    checked, then timed beside its plain version and `F.rms_norm`'s backward (of
+    r = x + res and r itself where fused)."""
     bf = torch.bfloat16
     x, dy = _randn(rng, (rows, d), bf, dev), _randn(rng, (rows, d), bf, dev)
+    res, dr = (_randn(rng, (rows, d), bf, dev) for _ in range(2)) if fused else (None, None)
     sc = 1 + 0.1 * _randn(rng, (d,), torch.float32, dev)  # see NORM_GAIN_NOTE
-    label = f"x, dy ({rows},{d}) bf16"
-    kern = lambda: rms_ops.rmsnorm_backward(x, None, sc, dy)  # noqa: E731
+    label = f"x, dy ({rows},{d}) bf16" + (", fused: res, dr" if fused else "")
+    kern = lambda: rms_ops.rmsnorm_backward(x, res, sc, dy, dr)  # noqa: E731
     got = kern()
-    _bwd_check("rmsnorm_bwd", label, got, rmsnorm_bwd_ref(x, None, sc, dy), bf, rec)
+    _bwd_check("rmsnorm_bwd", label, got, rmsnorm_bwd_ref(x, res, sc, dy, dr), bf, rec)
     _same_bits("rmsnorm_bwd", label, kern, got)
-    plain = time_ms(lambda: rmsnorm_bwd_ref(x, None, sc, dy))
+    plain = time_ms(lambda: rmsnorm_bwd_ref(x, res, sc, dy, dr))
     xs, ws = x.detach().clone().requires_grad_(), sc.to(bf).requires_grad_()
-    norm = lambda: F.rms_norm(xs, (d,), ws, 1e-5)  # noqa: E731
+    if fused:
+        rs = res.detach().clone().requires_grad_()
+        norm = lambda: (lambda r: (F.rms_norm(r, (d,), ws, 1e-5), r))(xs + rs)  # noqa: E731
+        inputs, grads = (xs, rs, ws), (dy, dr)
+    else:
+        norm = lambda: F.rms_norm(xs, (d,), ws, 1e-5)  # noqa: E731
+        inputs, grads = (xs, ws), dy
+    n_io = 5 if fused else 3  # x (res, dr), dy read; dx written
     return timing(label, time_ms(kern, iters=50, graph=True), plain,
-                  _backward_ms(norm, (xs, ws), dy, iters=20), 3 * rows * d * 2 + 2 * d * 4,
-                  8 * rows * d, bf)
+                  _backward_ms(norm, inputs, grads, iters=20), n_io * rows * d * 2 + 2 * d * 4,
+                  (9 if fused else 8) * rows * d, bf)
 
 
 def phase_bwd_kernels(dev, *, danube=(2, 32, 8, 6144, 80, 4096), qwen=(4, 40, 8, 1024, 128, None),
-                      dh64=(4, 32, 32, 1024, 64, None), norms=((12288, 2560), (4096, 5120)),
+                      dh64=(4, 32, 32, 1024, 64, None), zamba2=(2, 32, 32, 4096, 64, None),
+                      deepseek=(2, 16, 16, 4096, 128, None),
+                      norms=((12288, 2560), (4096, 5120), (8192, 2048)), fused_timed=((8192, 2048),),
                       qk_rows=163840, sweeps=True) -> dict:
     """The two backward kernels against their plain versions (BWD_BAR_NOTE), and timed.
 
     Flash backward at h2o-danube's training shape (`danube`: B, Hq, Hkv, S,
-    dh, window; past the window), at qwen3-14b's (`qwen`) and at dh 64 with
-    G 1 (`dh64`); each also checks the forward kernel's LSE against the plain
-    LSE. With `sweeps`, float32 and bf16 at ragged S, windows and every head
-    dim. RMSNorm backward at the training rows `norms`, plain and fused (with
-    the cotangent of r), and at qwen3's qk-norm rows (d 128, eps 1e-6).
+    dh, window; past the window), at qwen3-14b's (`qwen`), at dh 64 with G 1
+    (`dh64`) and at the training shapes of zamba2-1.2b (`zamba2`) and
+    deepseek-moe-16b (`deepseek`); each also checks the forward kernel's LSE
+    against the plain LSE. With `sweeps`, float32 and bf16 at ragged S,
+    windows and every head dim. RMSNorm backward at the training rows
+    `norms`, plain and fused (with the cotangent of r), each timed plain and
+    those of `fused_timed` fused too, and at qwen3's qk-norm rows (d 128, eps
+    1e-6).
     """
     rng = np.random.default_rng(1)
     rec = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS}
@@ -1187,11 +1247,12 @@ def phase_bwd_kernels(dev, *, danube=(2, 32, 8, 6144, 80, 4096), qwen=(4, 40, 8,
         _same_bits("rmsnorm_bwd", label, kern, got)
     rec["flash_attention_bwd"].update(_flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *danube))
     rec["flash_attention_bwd"]["extra"] = [
-        _flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *qwen),
-        _flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *dh64)]
+        _flash_bwd_timing(rng, dev, rec["flash_attention_bwd"], *shape)
+        for shape in (qwen, dh64, zamba2, deepseek)]
     first, *rest = norms
     rec["rmsnorm_bwd"].update(_norm_bwd_timing(rng, dev, rec["rmsnorm_bwd"], *first))
-    rec["rmsnorm_bwd"]["extra"] = [_norm_bwd_timing(rng, dev, rec["rmsnorm_bwd"], *n) for n in rest]
+    rec["rmsnorm_bwd"]["extra"] = [_norm_bwd_timing(rng, dev, rec["rmsnorm_bwd"], *n) for n in rest] + [
+        _norm_bwd_timing(rng, dev, rec["rmsnorm_bwd"], *n, fused=True) for n in fused_timed]
     for name, r in rec.items():
         for t in [r, *r.get("extra", [])]:
             log(f"[bwd] {name} at {t['shape']}: kernel {t['ms']:.4f} ms ({t['rate']}, "
@@ -1209,70 +1270,169 @@ def _token_ce(model, params, batch) -> torch.Tensor:
         return torch.logsumexp(logits, -1) - logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
 
 
-def phase_train_parity(dev, cfg, *, batch=1, seq=6144, seed=0, remats=("none", "selective", "full")):
-    """The training path at the config's width and depth (2 layers in `main`), bf16.
-
-    The loss and every gradient leaf through the kernels against the plain
-    path, at twice the bf16 floor (TRAIN_NOTE); then the kernel path under
-    each remat policy, whose losses and gradients must be identical, with
-    each run's peak memory."""
-    model, plain = Model(cfg), Model(cfg, kernels=False)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params = model.init(seed, dev, widen_head=False)
-    params32 = cast_tree(params, torch.float32)
+def _train_inputs(cfg, dev, batch: int, seq: int, seed: int):
+    """The port's seeded init at `cfg` (the head in the param dtype, as trained) and
+    one batch of seeded tokens with the next token as each label."""
+    params = Model(cfg).init(seed, dev, widen_head=False)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                                  (batch, seq + 1))).to(dev)
-    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    runs = {}
-    for label, m, p in (("kernels", model, params), ("plain", plain, params),
-                        ("plain_fp32", Model(cfg32, kernels=False), params32)):
-        grads, met = loss_and_grads(m, p, data, "selective")
-        runs[label] = (dict(paths(grads)), float(met["loss"]), _token_ce(m, p, data))
-    ce = {k: r[2] for k, r in runs.items()}
-    floor = (ce["plain"] - ce["plain_fp32"]).abs().mean().item()
-    loss_err = abs(runs["kernels"][1] - runs["plain"][1])
-    log(f"[train-parity] {cfg.name} L{cfg.num_layers} d{cfg.d_model} B{batch} S{seq} bf16: loss kernels "
-        f"{runs['kernels'][1]:.6f}, plain {runs['plain'][1]:.6f}, plain float32 "
-        f"{runs['plain_fp32'][1]:.6f}; kernels vs plain {loss_err:.3e} (tolerance {2 * floor:.3e} = "
-        f"2 x the mean per-token bf16 floor {floor:.3e})")
-    if not (np.isfinite(runs["kernels"][1]) and loss_err <= 2 * floor):
-        raise AssertionError(f"train parity {cfg.name}: loss {loss_err} > {2 * floor}")
+    return params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _leaf_errors(cfg, runs, keys, what: str) -> float:
+    """TRAIN_NOTE over the gradient leaves `keys` of `runs` (label -> {path: grad}):
+    each leaf of the kernel path within twice its bf16 floor. Returns the worst
+    ratio of a leaf's error to its floor."""
     worst = 0.0
-    for key, g32 in runs["plain_fp32"][0].items():
-        gk, gp = runs["kernels"][0][key], runs["plain"][0][key]
+    for key in keys:
+        g32, gk, gp = runs["plain_fp32"][key], runs["kernels"][key], runs["plain"][key]
         if not torch.isfinite(gk).all():
             raise AssertionError(f"train parity {cfg.name}: non-finite gradient {key}")
         norm = g32.float().norm()
         rel_k = ((gk.float() - gp.float()).norm() / norm).item()
         leaf_floor = ((gp.float() - g32.float()).norm() / norm).item()
         worst = max(worst, rel_k / max(leaf_floor, 1e-30))
-        log(f"[train-parity] {cfg.name} grad {key}: rel_err kernels vs plain {rel_k:.3e} "
+        log(f"[train-parity] {cfg.name}{what} grad {key}: rel_err kernels vs plain {rel_k:.3e} "
             f"(tolerance {2 * leaf_floor:.3e}; floor {leaf_floor:.3e}), kernels vs float32 "
             f"{((gk.float() - g32.float()).norm() / norm).item():.3e}")
         if not rel_k <= 2 * leaf_floor:
             raise AssertionError(f"train parity {cfg.name}: grad {key} {rel_k} > {2 * leaf_floor}")
+    return worst
+
+
+def phase_train_parity(dev, cfg, *, batch=1, seq=6144, seed=0):
+    """The training path at the config's width and depth (2 layers in `main`; zamba2
+    at PARITY_LAYERS'), bf16.
+
+    The loss and every gradient leaf through the kernels against the plain
+    path, at twice the bf16 floor (TRAIN_NOTE); then the kernel path under
+    each remat policy (`phase_remat_identity`)."""
+    model, plain = Model(cfg), Model(cfg, kernels=False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params, data = _train_inputs(cfg, dev, batch, seq, seed)
+    params32 = cast_tree(params, torch.float32)
+    runs, losses, ce = {}, {}, {}
+    for label, m, p in (("kernels", model, params), ("plain", plain, params),
+                        ("plain_fp32", Model(cfg32, kernels=False), params32)):
+        grads, met = loss_and_grads(m, p, data, "selective")
+        runs[label], losses[label], ce[label] = dict(paths(grads)), float(met["loss"]), _token_ce(m, p, data)
+    floor = (ce["plain"] - ce["plain_fp32"]).abs().mean().item()
+    loss_err = abs(losses["kernels"] - losses["plain"])
+    log(f"[train-parity] {cfg.name} L{cfg.num_layers} d{cfg.d_model} B{batch} S{seq} bf16: loss kernels "
+        f"{losses['kernels']:.6f}, plain {losses['plain']:.6f}, plain float32 "
+        f"{losses['plain_fp32']:.6f}; kernels vs plain {loss_err:.3e} (tolerance {2 * floor:.3e} = "
+        f"2 x the mean per-token bf16 floor {floor:.3e})")
+    if not (np.isfinite(losses["kernels"]) and loss_err <= 2 * floor):
+        raise AssertionError(f"train parity {cfg.name}: loss {loss_err} > {2 * floor}")
+    worst = _leaf_errors(cfg, runs, list(runs["plain_fp32"]), "")
     del runs
-    same, mems = True, {}
-    ref = None
+    return {"loss_err": loss_err, "floor": floor, "worst_leaf_ratio": worst,
+            **phase_remat_identity(dev, cfg, params=params, data=data)}
+
+
+def phase_train_parity_moe(dev, cfg, *, batch=1, seq=2048, seed=0):
+    """An MoE config's training path (2 layers in `main`: the dense layer, then an
+    MoE layer) at dropless capacity, kernels against the plain path.
+
+    float32: every token routed alike on both paths (`moe.routing_record`),
+    the loss and every gradient leaf within TRAIN_F32_TOL. bf16, routing-aware
+    (TRAIN_ROUTING_NOTE): every token routed differently by any of the kernel,
+    plain and plain float32 paths a near tie; the positions it reaches left out
+    of the loss; the CE and the leaves MOE_UNREACHED (every leaf where no token
+    differs) at twice the bf16 floor (TRAIN_NOTE). Then the kernel path at the
+    published capacity under each remat policy (`phase_remat_identity`)."""
+    # dropless: an expert takes a token at most once, so a capacity C >= T drops none
+    drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=(cfg.moe.num_experts + 1) / cfg.moe.top_k))
+    cfg32 = dataclasses.replace(drop, dtype="float32", param_dtype="float32")
+    params, data = _train_inputs(cfg, dev, batch, seq, seed)
+    params32 = cast_tree(params, torch.float32)
+    variants = {"kernels": (Model(drop), params), "plain": (Model(drop, kernels=False), params),
+                "plain_fp32": (Model(cfg32, kernels=False), params32), "kernels_fp32": (Model(cfg32), params32)}
+    n_moe = Model(cfg).n_scan
+    routes = {}
+    for label, (m, p) in variants.items():
+        with torch.no_grad(), moe.routing_record() as rec:
+            m.forward(p, data)
+        routes[label] = stack_routing(rec, n_moe, batch)
+    # float32: identical routing, every leaf and the loss within TRAIN_F32_TOL
+    f32_diff, _ = routing_split(routes, ("kernels_fp32", "plain_fp32"), 0)
+    if f32_diff.any():
+        raise AssertionError(f"train parity {cfg.name}: float32 routing differs at "
+                             f"{int(f32_diff.sum())} tokens")
+    f32 = {label: loss_and_grads(*variants[label], data, "selective") for label in ("kernels_fp32", "plain_fp32")}
+    loss_rel = abs(float(f32["kernels_fp32"][1]["loss"]) / float(f32["plain_fp32"][1]["loss"]) - 1)
+    worst32 = 0.0
+    for (key, gk), (_, gp) in zip(paths(f32["kernels_fp32"][0]), paths(f32["plain_fp32"][0]), strict=True):
+        rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+        worst32 = max(worst32, rel)
+        if not (torch.isfinite(gk).all() and rel <= TRAIN_F32_TOL):
+            raise AssertionError(f"train parity {cfg.name} float32: grad {key} rel_err {rel}")
+    log(f"[train-parity] {cfg.name} L{cfg.num_layers} B{batch} S{seq} float32, dropless: routing "
+        f"identical at all {f32_diff.numel()} token routings; loss kernels "
+        f"{float(f32['kernels_fp32'][1]['loss']):.6f} vs plain {float(f32['plain_fp32'][1]['loss']):.6f} "
+        f"(rel {loss_rel:.3e}); worst gradient leaf rel_err {worst32:.3e} (tol TRAIN_F32_TOL "
+        f"{TRAIN_F32_TOL:g}) over {len(paths(f32['plain_fp32'][0]))} leaves")
+    if not loss_rel <= TRAIN_F32_TOL:
+        raise AssertionError(f"train parity {cfg.name} float32: loss rel {loss_rel}")
+    del f32
+    # bf16, routing-aware
+    diff, _ = _routed_alike("train bf16 kernels, bf16 plain, float32 plain", routes,
+                            ("kernels", "plain", "plain_fp32"), "plain_fp32", 1)
+    reach = (diff[-1] | diff[:-1].any(0).int().cummax(-1).values.bool()).to(dev)  # (B, S)
+    masked = {"tokens": data["tokens"], "labels": data["labels"].masked_fill(reach, -1)}
+    runs, ce, tok = {}, {}, {}
+    for label in ("kernels", "plain", "plain_fp32"):
+        grads, met = loss_and_grads(*variants[label], masked, "selective")
+        runs[label], ce[label] = dict(paths(grads)), float(met["ce"])
+        tok[label] = _token_ce(*variants[label], data)[~reach]
+    floor = (tok["plain"] - tok["plain_fp32"]).abs().mean().item()
+    ce_err = abs(ce["kernels"] - ce["plain"])
+    keys = [k for k in runs["plain_fp32"] if not diff.any() or k.startswith(MOE_UNREACHED)]
+    log(f"[train-parity] {cfg.name} bf16, dropless: {int(reach.sum())} of {reach.numel()} positions "
+        f"left out of the loss; CE kernels {ce['kernels']:.6f}, plain {ce['plain']:.6f}, plain float32 "
+        f"{ce['plain_fp32']:.6f}; kernels vs plain {ce_err:.3e} (tolerance {2 * floor:.3e}); leaves "
+        f"compared ({len(keys)} of {len(runs['plain_fp32'])}): {keys}")
+    if not (np.isfinite(ce["kernels"]) and ce_err <= 2 * floor):
+        raise AssertionError(f"train parity {cfg.name}: CE {ce_err} > {2 * floor}")
+    worst = _leaf_errors(cfg, runs, keys, " bf16")
+    del runs
+    return {"routing_diff": int(diff.sum()), "fp32_worst_leaf": worst32, "fp32_loss_rel": loss_rel,
+            "ce_err": ce_err, "floor": floor, "worst_leaf_ratio": worst, "compared": keys,
+            **phase_remat_identity(dev, cfg, params=params, data=data)}
+
+
+def phase_remat_identity(dev, cfg, *, params=None, data=None, batch=1, seq=4096, seed=0,
+                         remats=("none", "selective", "full")) -> dict:
+    """The kernel path's loss, metrics and every gradient under each remat policy:
+    identical, with each policy's peak memory and the products selective remat
+    saves in a forward (`transformer.saved_record`)."""
+    model = Model(cfg)
+    if params is None:
+        params, data = _train_inputs(cfg, dev, batch, seq, seed)
+    same, mems, ref, saved = True, {}, None, 0
     for remat in remats:
         torch.cuda.empty_cache() if dev.type == "cuda" else None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        grads, met = loss_and_grads(model, params, data, remat)
+        with saved_record() as rec:
+            grads, met = loss_and_grads(model, params, data, remat)
         sync()
+        saved = max(saved, len(rec))
         mems[remat] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
-        flat = (met["loss"], *(g for _, g in paths(grads)))
+        flat = (*(met[k] for k in sorted(met)), *(g for _, g in paths(grads)))
         if ref is None:
             ref = flat
         else:
-            same &= all(torch.equal(a, b) for a, b in zip(flat, ref))
+            same &= all(torch.equal(a, b) for a, b in zip(flat, ref, strict=True))
         del grads
-    log(f"[train-parity] {cfg.name} kernel path under remat {', '.join(remats)}: losses and "
-        f"gradients {'identical' if same else 'DIFFER'}; peak GiB "
-        + ", ".join(f"{r} {m:.2f}" for r, m in mems.items()))
+    log(f"[train-parity] {cfg.name} L{cfg.num_layers} kernel path under remat {', '.join(remats)}: "
+        f"loss, metrics and gradients {'identical' if same else 'DIFFER'}; peak GiB "
+        + ", ".join(f"{r} {m:.2f}" for r, m in mems.items())
+        + f"; selective saves {saved} products a forward")
     if not same:
         raise AssertionError(f"train parity {cfg.name}: remat policies give other gradients")
-    return {"loss_err": loss_err, "floor": floor, "worst_leaf_ratio": worst, "peak_gib": mems}
+    return {"peak_gib": mems, "saved_products": saved}
 
 
 def phase_resume(dev, cfg, *, batch=1, seq=2048, steps=4, at=2, seed=0) -> dict:
@@ -1307,61 +1467,104 @@ def phase_resume(dev, cfg, *, batch=1, seq=2048, steps=4, at=2, seed=0) -> dict:
     return {"losses": a, "straight": b, "bitwise": bitwise}
 
 
-def phase_train_run(dev, cfg, smi, *, batch=2, seq=6144, steps=6, remat="selective",
-                    warmup=TRAIN_WARMUP) -> dict:
-    """The training path at the config's full width and depth through
-    `launch.train.run`: every kernel of the path (TRAIN_PATH) must launch, and
-    decode attention must not; every loss finite. Step time, tokens/s and MFU
-    over the steps after `warmup`; MFU counts 6 N a token plus attention's
-    14 dh flops a live pair (4 dh forward, 10 dh backward) over 989 TFLOP/s."""
+def train_kernels(cfg) -> list[str]:
+    """The kernels of a config's training path: those of its serve path but decode,
+    and the backward kernel of each forward one."""
+    used = used_kernels(cfg)
+    need = {"flash_attention_bwd": "flash_attention", "rmsnorm_bwd": "rmsnorm"}
+    return [k for k in TRAIN_PATH if need.get(k, k) in used]
+
+
+# MFU_NOTE: a training step's model flops are 6 x the parameters whose products a
+# token runs (`product_params`) x the tokens, plus attention's 14 dh flops a live
+# query-key pair (4 dh forward, 10 dh backward) at each attention block; over the
+# card's bf16 peak. The recompute of remat is not counted (it is overhead), and
+# neither are Mamba2's SSD and RWKV6's WKV chunk scans (their products are
+# batched over chunks and heads, and their elementwise work is most of them).
+def product_params(cfg) -> int:
+    """Parameters whose products a token runs: every leaf but the token table (a
+    lookup; a tied head counts as the head), the routed experts at top_k of
+    num_experts, a hybrid's shared block once an application."""
+    total = 0
+    for path, pd in _walk(param_defs(cfg)):
+        n = int(np.prod(pd.shape))
+        if path == "embed/tok" and not cfg.tie_embeddings:
+            continue
+        if cfg.moe is not None and re.fullmatch(r"layers/moe/w[igo]", path):
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        if path.startswith("shared/"):
+            n *= attention_blocks(cfg)
+        total += n
+    return total
+
+
+def phase_train_run(dev, cfg, smi, *, batch=2, seq=6144, steps=6, warmup=2, remat="selective",
+                    optimizer="adamw") -> dict:
+    """The training path at the config's full width (and the depth given) through
+    `launch.train.run`: every kernel of the path (`train_kernels`) must launch,
+    and no other (decode attention never); every loss finite. Step time,
+    tokens/s and MFU (MFU_NOTE) over the steps after `warmup`, peak memory,
+    the MoE metrics where there are any, and the launches a step."""
     build.reset_launches()
     out = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat=remat,
-                    log=lambda *_: None)
+                    optimizer=optimizer, log=lambda *_: None)
     launches = dict(build.LAUNCHES)
     losses = out["losses"]
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"train: losses {losses}")
-    missing = [k for k in TRAIN_PATH if launches[k] == 0]
+    path = train_kernels(cfg)
+    missing = [k for k in path if launches[k] == 0]
     if missing:
         raise AssertionError(f"train: kernels never launched on the main path: {missing}")
-    if launches["decode_attention"]:
-        raise AssertionError("train: decode attention launched while training")
+    other = [k for k, n in launches.items() if n and k not in path]
+    if other:
+        raise AssertionError(f"train: kernels off {cfg.name}'s training path launched: {other}")
     step_s = float(np.mean(out["step_times"][warmup:]))
     tokens = out["tokens_per_step"]
-    attn = 14 * cfg.head_dim * live_pairs(seq, cfg.sliding_window) * batch * cfg.num_heads * cfg.num_layers
-    flops = 6 * out["params"] * tokens + attn
+    n_prod = product_params(cfg)
+    attn = 14 * cfg.head_dim * live_pairs(seq, cfg.sliding_window) * batch * cfg.num_heads * \
+        attention_blocks(cfg)
+    flops = 6 * n_prod * tokens + attn
     mfu = flops / step_s / PEAK_BF16
-    mem = out["max_memory_allocated"] / 2**30
+    mem = (out["max_memory_allocated"] or 0) / 2**30
     per_step = out["launches_per_step"][-1]
-    log(f"[train] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype} {out['params']} params, "
-        f"B{batch} x S{seq}, AdamW, remat {remat}, on {torch.cuda.get_device_name(0)} ({smi}): "
-        f"step {step_s:.4f} s (mean of steps {warmup}-{steps - 1}; all: "
-        f"{[round(t, 4) for t in out['step_times']]}), {tokens / step_s:.1f} tokens/s, losses "
-        f"{[round(x, 5) for x in losses]}, peak {mem:.2f} GiB, MFU {100 * mfu:.2f}% "
-        f"({flops / 1e12:.1f} TFLOP a step: 6 N tokens {6 * out['params'] * tokens / 1e12:.1f} + "
-        f"attention {attn / 1e12:.1f}); launches per step {per_step}")
+    moe_metrics = ({k: [round(h[k], 5) for h in out["history"]] for k in AUX_KEYS}
+                   if cfg.moe is not None else {})
+    log(f"[train] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype} {out['params']} params "
+        f"({n_prod} in a token's products), B{batch} x S{seq}, {optimizer}, remat {remat}, on "
+        f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev} ({smi}): step {step_s:.4f} s (mean of steps {warmup}-"
+        f"{steps - 1}; all: {[round(t, 4) for t in out['step_times']]}), {tokens / step_s:.1f} "
+        f"tokens/s, losses {[round(x, 5) for x in losses]}, peak {mem:.2f} GiB, MFU {100 * mfu:.2f}% "
+        f"({flops / 1e12:.1f} TFLOP a step: 6 x {n_prod} x tokens {6 * n_prod * tokens / 1e12:.1f} + "
+        f"attention {attn / 1e12:.1f}); launches per step {per_step}"
+        + (f"; kernels of its path: {path}" if path else "; no kernel on its path: none launched")
+        + (f"; MoE metrics a step {moe_metrics}" if moe_metrics else ""))
     return {"step_s": step_s, "tokens_per_s": tokens / step_s, "losses": losses, "peak_gib": mem,
             "mfu": mfu, "launches": launches, "launches_per_step": per_step,
-            "step_times": out["step_times"]}
+            "step_times": out["step_times"], "moe": moe_metrics}
 
 
-def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", top=10) -> dict:
-    """Where a training step's time goes, at the train run's shape: one step
-    after a warm-up one, timed by the host clock (ending in a sync), then one
-    more traced with torch.profiler: device busy time, idle share, the
-    kernels that take the most device time, and the device time of each
-    kernel of the training path."""
+def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", optimizer="adamw",
+                      before=2, top=10) -> dict:
+    """Where a training step's time goes, at the train run's shape: `before` steps
+    (the last timed by the host clock, ending in a sync), then one more traced
+    with torch.profiler: device busy time, idle share, the kernels that take the
+    most device time, and the device time of each kernel of the port. Only the
+    device's activity is traced: rwkv6-7b's step launches ~600,000 kernels, and
+    tracing the host's ops too took minutes to record and sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = Trainer(Model(cfg), ParallelConfig(remat=remat), TrainConfig(steps=3), dev)
+    trainer = Trainer(Model(cfg), ParallelConfig(remat=remat),
+                      TrainConfig(steps=before + 1, optimizer=optimizer), dev)
     state = trainer.init_state()
     data = SyntheticLM(cfg.vocab_size, seq, batch)
     quiet = dict(log=lambda *_: None)
-    state, hist = trainer.fit(state, data, steps=2, **quiet)
+    state, hist = trainer.fit(state, data, steps=before, **quiet)
     wall_ms = hist[-1]["step_time_s"] * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = trainer.fit(state, data, steps=1, start_step=2, **quiet)
+    # (the CPU rehearsal, which has no device, traces its host ops)
+    with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU]) as prof:
+        state, _ = trainer.fit(state, data, steps=1, start_step=before, **quiet)
         sync()
     del state
     events = [e for e in prof.key_averages()
@@ -1369,7 +1572,7 @@ def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", top=10)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"[train-trace] {cfg.name} training step B{batch} x S{seq}, remat {remat}: wall {wall_ms:.1f} ms "
         f"(host clock, untraced), device busy {device_ms:.1f} ms, idle share "
-        f"{max(0.0, 1 - device_ms / wall_ms):.3f}")
+        f"{max(0.0, 1 - device_ms / wall_ms):.3f}, {sum(e.count for e in events)} device items")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[train-trace]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d} calls  {e.key[:90]}")
     ours = {}
@@ -1379,8 +1582,16 @@ def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", top=10)
                      "rmsnorm_bwd_kernel", "reduce_partials_kernel"):
             if name in e.key:
                 ours[name] = ours.get(name, 0.0) + e.self_device_time_total / 1e3
-    log("[train-trace]   the port's kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()))
+    log("[train-trace]   the port's kernels: " + (", ".join(f"{k} {v:.2f} ms" for k, v in ours.items())
+                                                  or "none"))
     return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours}
+
+
+def train_config(arch: str):
+    """A training run's config: full width, `layers` deep where TRAIN_RUNS cuts it."""
+    cfg = get_config(arch)
+    layers = TRAIN_RUNS[arch].get("layers")
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
 
 
 def main() -> None:
@@ -1427,21 +1638,30 @@ def main() -> None:
             f"{t['wall_ms']:.3f}, {t['device_ms']:.3f}, {1 - t['device_ms'] / t['wall_ms']:.3f}")
     t_train = time.perf_counter()
     for arch, shape in TRAIN_PARITY.items():
-        phase_train_parity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed,
-                           **shape)
+        cfg = dataclasses.replace(get_config(arch), num_layers=PARITY_LAYERS.get(arch, 2))
+        (phase_train_parity_moe if cfg.moe else phase_train_parity)(dev, cfg, seed=args.seed, **shape)
         torch.cuda.empty_cache()
-    phase_resume(dev, dataclasses.replace(get_config(TRAIN_RUN["arch"]), num_layers=2), seed=args.seed)
+    for arch, shape in REMAT_ONLY.items():
+        phase_remat_identity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed,
+                             **shape)
+        torch.cuda.empty_cache()
+    phase_resume(dev, dataclasses.replace(get_config("h2o_danube_1p8b"), num_layers=2), seed=args.seed)
     torch.cuda.empty_cache()
-    run_cfg = get_config(TRAIN_RUN["arch"])
-    train = phase_train_run(dev, run_cfg, smi, **{k: v for k, v in TRAIN_RUN.items() if k != "arch"})
-    torch.cuda.empty_cache()
-    phase_train_trace(dev, run_cfg, batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"],
-                      remat=TRAIN_RUN["remat"])
-    runs = {**{c: r["launches"] for c, r in serves.items()}, f"train {run_cfg.name}": train["launches"]}
+    trains = {}
+    for arch, run in TRAIN_RUNS.items():
+        cfg = train_config(arch)
+        shape = {k: v for k, v in run.items() if k != "layers"}
+        trains[cfg.name] = phase_train_run(dev, cfg, smi, **shape)
+        torch.cuda.empty_cache()
+        phase_train_trace(dev, cfg, batch=run["batch"], seq=run["seq"], remat=run["remat"],
+                          optimizer=run.get("optimizer", "adamw"))
+        torch.cuda.empty_cache()
+    runs = {**{c: r["launches"] for c, r in serves.items()},
+            **{f"train {c}": r["launches"] for c, r in trains.items()}}
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 "
         f"{t7 + time.perf_counter() - t_train:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
-    # over the serve runs and the training run
+    # over the serve runs and the training runs
     sources = {**KERNELS, **TRAIN_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],

@@ -5,11 +5,11 @@
       --checkpoint-dir build/ckpt --checkpoint-every 10 [--resume]
 
 The command line trains the reduced config (`--reduced` is always on, as in
-JAX's launcher) on CUDA unless `--device` names another. `run` takes any
-config of the dense family, so a caller can train the full-width model with
-the same code (`chip_smoke.py` does). `--mesh` waits for distribution
-(ROADMAP A6) and `--auto-plan`, `--chips`, `--hardware` for the planner's
-port (ROADMAP A7): they are accepted and refused.
+JAX's launcher) on CUDA unless `--device` names another. `--arch` and `run`
+take every config, as JAX's launcher does, so a caller can train the
+full-width model with the same code (`chip_smoke.py` does). `--mesh` waits
+for distribution (ROADMAP A6) and `--auto-plan`, `--chips`, `--hardware`
+for the planner's port (ROADMAP A7): they are accepted and refused.
 """
 
 from __future__ import annotations

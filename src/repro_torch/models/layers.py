@@ -64,7 +64,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p["tok"][tokens].to(dtype)
+    """The token rows, JAX's `tok[tokens]`. `F.embedding`, whose backward adds a
+    repeated token's rows in a fixed order on the CPU and on CUDA (indexing's
+    backward adds them in a varying order on the CPU)."""
+    return F.embedding(tokens, p["tok"]).to(dtype)
 
 
 def lm_logits(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

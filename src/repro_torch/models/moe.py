@@ -36,6 +36,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoECfg
 from repro_torch.models.layers import activation
@@ -113,7 +114,10 @@ def _moe_group(cfg: ModelConfig, p: dict, xf: torch.Tensor, C: int, stats: bool)
     token_of = order // K
 
     buf = torch.zeros(E, C + 1, D, dtype=dt, device=dev)
-    buf[sorted_e, slot] = xf[token_of]  # several dropped rows may land in row C: it is cut off
+    # several dropped rows may land in row C: it is cut off, so no gradient flows from
+    # it; `F.embedding` adds a token's K row gradients in a fixed order (`xf[token_of]`'s
+    # backward adds them in a varying order on the CPU)
+    buf[sorted_e, slot] = F.embedding(token_of, xf)
     h = buf[:, :C]
     up = torch.bmm(h, p["wi"].to(dt))
     if "wg" in p:

@@ -10,13 +10,13 @@
 
 `forward` (with JAX's remat policies), `loss`, `prefill`, `init_cache` and
 `decode_step`. Autograd differentiates `forward` and `loss` through the
-kernels' autograd Functions on the kernel path; training is held to JAX for
-the dense family (dense, vlm, audio), and `train/train_step.py` refuses the
-others. A Python loop over the blocks replaces `lax.scan`, over views of the
-stacked `(L, ...)` parameters (one `unbind` a leaf). The hybrid splits its L layers
-as JAX's `_hybrid_split` does: n_seg = L // attn_every segments of [shared
-block, attn_every Mamba2 layers], then, if layers are left, one more shared
-block and the tail of n_tail = L - n_seg * attn_every layers. The shared
+kernels' autograd Functions on the kernel path; every family trains, held
+to JAX's gradients. A Python loop over the blocks replaces `lax.scan`, over
+views of the stacked `(L, ...)` parameters (one `unbind` a leaf). The
+hybrid splits its L layers as JAX's `_hybrid_split` does: n_seg = L //
+attn_every segments of [shared block, attn_every Mamba2 layers], then, if
+layers are left, one more shared block and the tail of n_tail = L - n_seg
+* attn_every layers. The shared
 block is a dense layer with its own weights (`params["shared"]`), so it runs
 through `_apply_dense_layer`, with a KV cache of its own at every application.
 
@@ -45,6 +45,7 @@ on any device: the oracle the kernel path is held to on the card.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -57,7 +58,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
-from repro_torch.models.params import (FAMILIES, _walk, count_params, init_params,
+from repro_torch.models.params import (FAMILIES, count_params, init_params,
                                        layer_params, n_head_layers, unstacked_layers)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
@@ -65,8 +66,6 @@ AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 SLOT_AXES = {"layers": 1, "head_layers": 0, "seg/shared": 1, "seg/mamba": 2, "tail": 0}
 
 
-# the families whose gradients are held to JAX's; the others are refused a backward
-TRAINED_FAMILIES = ("dense", "vlm", "audio")
 REMAT = ("none", "selective", "full")
 # selective remat saves the outputs of the batch-free matrix products, as JAX's
 # `dots_with_no_batch_dims_saveable` does: the projections and the MLP (`x @ W`
@@ -75,8 +74,27 @@ REMAT = ("none", "selective", "full")
 _SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
+_SAVED: list | None = None  # the open `saved_record`, if any
+
+
+@contextlib.contextmanager
+def saved_record():
+    """Yields a list that gets the op of every product selective remat saves in a
+    forward (not in its recompute) while it is open."""
+    global _SAVED
+    prev, _SAVED = _SAVED, []
+    try:
+        yield _SAVED
+    finally:
+        _SAVED = prev
+
+
 def _save_products(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+    if op not in _SAVED_OPS:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    if _SAVED is not None and not ctx.is_recompute:
+        _SAVED.append(op)
+    return CheckpointPolicy.MUST_SAVE
 
 
 def remat_wrap(fn, remat: str | None):
@@ -209,13 +227,6 @@ class Model:
             self.n_seg = cfg.num_layers // cfg.attn_every
             self.n_tail = cfg.num_layers - self.n_seg * cfg.attn_every
 
-    def check_trainable(self) -> None:
-        """Raise unless this family's gradients are held to JAX's (TRAINED_FAMILIES)."""
-        if self.cfg.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the {self.cfg.family!r} family is not held to JAX "
-                "yet (ROADMAP A5b: the MoE aux-loss gradients, then Mamba2 and RWKV6 autograd)")
-
     def init(self, seed: int, device: torch.device, *, widen_head: bool = True) -> dict:
         return init_params(self.cfg, seed, device, widen_head=widen_head)
 
@@ -260,23 +271,47 @@ class Model:
             p = {"w": params["embed"]["tok"].T}
         return lm_logits(p, x, torch.float32)
 
+    def _remat_groups(self, params: dict) -> list:
+        """The blocks of `forward` grouped as JAX checkpoints them: (blocks, wrapped).
+
+        A hybrid wraps each segment, the shared block and its `attn_every`
+        Mamba2 layers, in one checkpoint and leaves the tail unwrapped
+        (JAX's `seg_body` under `jax.checkpoint`, then the tail outside it);
+        every other stack wraps each block alone, the head layers one by one
+        and each stacked layer as the body of JAX's scan.
+        """
+        blocks = self._blocks(params)
+        if not self.is_hybrid:
+            return [([b], True) for b in blocks]
+        k = self.cfg.attn_every + 1
+        n = self.n_seg * k
+        groups = [(blocks[i:i + k], True) for i in range(0, n, k)]
+        return groups + ([(blocks[n:], False)] if self.n_tail else [])
+
+    def _run_blocks(self, blocks: list, x: torch.Tensor):
+        """x through `blocks` in forward mode: (x, their MoE metrics summed, or None)."""
+        total = None
+        for apply, p, _ in blocks:
+            x, a = apply(self.cfg, p, x, "forward", kernels=self.kernels)
+            if a is not None:
+                total = a if total is None else {k: total[k] + a[k] for k in AUX_KEYS}
+        return x, total
+
     def forward(self, params: dict, batch: dict, remat: str | None = None):
         """Full-sequence forward: (final hidden (B, S, D), aux).
 
         `aux` holds JAX's MoE metrics, summed over the stacked layers and
         divided by their number (the head layers are dense and add nothing),
         all zero for the other families. `remat` ("none", "selective",
-        "full"; `remat_wrap`) applies to each block, as JAX's applies to each
-        layer of its scan. A family outside TRAINED_FAMILIES refuses to run
-        when a gradient would be taken.
+        "full"; `remat_wrap`) applies to each checkpointed group of blocks
+        (`_remat_groups`), as JAX's applies to each layer of its scan and to
+        each hybrid segment.
         """
-        if torch.is_grad_enabled() and any(t.requires_grad for _, t in _walk(params)):
-            self.check_trainable()
         x = self._inputs_to_hidden(params, batch)
         aux = zero_aux(x.device)
-        for apply, p, _ in self._blocks(params):
-            block = functools.partial(apply, self.cfg, p, mode="forward", kernels=self.kernels)
-            x, a = remat_wrap(block, remat)(x)
+        for blocks, wrapped in self._remat_groups(params):
+            run = functools.partial(self._run_blocks, blocks)
+            x, a = (remat_wrap(run, remat) if wrapped else run)(x)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in AUX_KEYS}
         aux = {k: v / max(self.n_scan, 1) for k, v in aux.items()}

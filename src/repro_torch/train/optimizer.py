@@ -11,7 +11,11 @@ with distribution (ROADMAP A6).
 Unlike JAX, which returns new arrays, `adamw_update` writes the new
 parameters and moments into the tensors it is given (JAX's `Trainer`
 donates the state to the same effect): a step then holds one copy of the
-state, not two.
+state, not two. A leaf of more than SLICE_ELEMENTS elements is updated, and
+its square summed for the global norm, in slices along its leading axis
+(`_slices`), so that the float32 temporaries (XLA fuses them in JAX) are
+one slice's size: rwkv6-7b's (32, 4096, 14336) channel-mix leaves would
+take 7.5 GB each.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.train.tree import leaves, tree_map
+
+# the largest leaf (in elements) that `adamw_update` and `global_norm` take at
+# once: 256 MB a float32 temporary
+SLICE_ELEMENTS = 1 << 26
 
 
 def lr_schedule(cfg: TrainConfig, step) -> torch.Tensor:
@@ -72,8 +80,30 @@ def adamw_init(params: dict, cfg: TrainConfig) -> dict:
     return {"m": m, "v": v, "step": step}
 
 
+def _slices(p: torch.Tensor) -> list:
+    """Ranges of the leading axis to update at a time: the whole leaf (None), or for a leaf
+    of ndim >= 2 above SLICE_ELEMENTS, runs of as many leading rows as fit in it.
+    The results are the same bits: every operation of the update is elementwise,
+    the int8 scales are per row along the last axis, and the clip factor and the
+    bias corrections are computed once before."""
+    if p.dim() < 2 or p.numel() <= SLICE_ELEMENTS:
+        return [None]
+    n = max(1, SLICE_ELEMENTS // (p.numel() // p.shape[0]))
+    return [slice(i, i + n) for i in range(0, p.shape[0], n)]
+
+
+def _at(leaf, sl):
+    """A leaf's rows `sl` (all of it for None), both tensors' of a quantized leaf."""
+    if sl is None:
+        return leaf
+    return {k: v[sl] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[sl]
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack([g.float().square().sum() for g in leaves(tree)]).sum())
+    """The float32 norm of every leaf together; a leaf above SLICE_ELEMENTS summed
+    slice by slice (`_slices`), so that its float32 square is one slice's size."""
+    return torch.sqrt(torch.stack([sum(_at(g, sl).float().square().sum() for sl in _slices(g))
+                                   for g in leaves(tree)]).sum())
 
 
 def _assign(dst, src) -> None:
@@ -96,14 +126,14 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig):
     bc1 = 1.0 - torch.pow(cfg.b1, step.to(torch.float32))
     bc2 = 1.0 - torch.pow(cfg.b2, step.to(torch.float32))
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, decay: bool):
         g = g.float() * clip
         mf = _dequantize(m) if quant else m
         vf = _dequantize(v) if quant else v
         mf = cfg.b1 * mf + (1 - cfg.b1) * g
         vf = cfg.b2 * vf + (1 - cfg.b2) * g.square()
         update = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only (and the stacked gains)
+        if decay:  # decoupled weight decay on matrices only (and the stacked gains)
             update = update + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * update).to(p.dtype))
         _assign(m, _quantize(mf) if quant else mf)
@@ -112,6 +142,7 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig):
     flat_m = leaves_q(opt_state["m"])
     flat_v = leaves_q(opt_state["v"])
     for p, g, m, v in zip(leaves(params), leaves(grads), flat_m, flat_v, strict=True):
-        upd(p, g, m, v)
+        for sl in _slices(p):
+            upd(*(_at(t, sl) for t in (p, g, m, v)), p.dim() >= 2)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -6,10 +6,9 @@ Microbatch gradient accumulation, JAX's three remat policies
 gradient compression with error feedback, on one device. ZeRO and meshes
 come with distribution (ROADMAP A6).
 
-The dense family (dense, vlm, audio) is held to JAX's gradients. The MoE
-aux-loss gradients and the Mamba2 and RWKV6 layers are not yet (ROADMAP
-A5b), so `make_train_step` (and `Model.forward` under autograd) refuses
-those families.
+Every family trains, held to JAX's gradients: dense, vlm and audio; the MoE
+configs with their load-balance and z losses; the hybrid (Mamba2 + a shared
+block) and RWKV6.
 """
 
 from __future__ import annotations
@@ -49,8 +48,6 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
     on the state's device. The metrics are 0-d tensors: JAX's loss metrics
     (`loss`, `ce`, `accuracy` and the MoE aux keys), `grad_norm` and `lr`.
     """
-    model.check_trainable()
-
     def grads_of(params, batch):
         return loss_and_grads(model, params, batch, pcfg.remat)
 

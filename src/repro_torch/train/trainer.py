@@ -47,7 +47,6 @@ def sync(device: torch.device) -> None:
 
 class Trainer:
     def __init__(self, model: Model, pcfg: ParallelConfig, tcfg: TrainConfig, device):
-        model.check_trainable()
         self.model, self.pcfg, self.tcfg = model, pcfg, tcfg
         self.device = torch.device(device)
         self.watchdog = StragglerWatchdog()

@@ -134,3 +134,38 @@ def test_bf16_leaves_round_as_jax():
     np.testing.assert_array_equal(tp["w"].view(torch.int16).numpy(),
                                   np.asarray(jp["w"]).view(np.int16))
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw8bit"])
+def test_sliced_update_is_bit_for_bit_the_whole_leaf_update(optimizer, monkeypatch):
+    """Leaves above SLICE_ELEMENTS are updated in runs of leading rows (the last run
+    shorter), the others at once: three steps give the same bits as updating every
+    leaf whole, parameters (float32 and bf16) and moments (int8 codes and scales).
+    Without clipping, so that the update does not read the global norm, whose
+    sliced sums add in another order: it agrees to float32 rounding."""
+    rng = np.random.default_rng(6)
+    tree = {"stacked": rng.standard_normal((7, 4, 8), dtype=np.float32),  # runs of 2 rows
+            "wide": rng.standard_normal((10, 12), dtype=np.float32),  # runs of 5 rows
+            "small": rng.standard_normal((3, 8), dtype=np.float32),  # below: at once
+            "vec": rng.standard_normal(80, dtype=np.float32)}  # 1-D: never sliced
+    tcfg = TrainConfig(steps=10, warmup_steps=2, optimizer=optimizer, grad_clip=0.0)
+    grads = [{k: rng.standard_normal(v.shape, dtype=np.float32) for k, v in tree.items()}
+             for _ in range(3)]
+    runs, norms = [], []
+    for limit in (64, 1 << 40):
+        monkeypatch.setattr(topt, "SLICE_ELEMENTS", limit)
+        tp = _to_torch(tree)
+        tp["bf16"] = tp["stacked"].to(torch.bfloat16)
+        to = topt.adamw_init(tp, tcfg)
+        for g in grads:
+            gt = _to_torch(g)
+            gt["bf16"] = gt["stacked"].to(torch.bfloat16)
+            tp, to, stats = topt.adamw_update(tp, gt, to, tcfg)
+        runs.append((tp, to))
+        norms.append(float(stats["grad_norm"]))
+        if limit == 64:
+            assert [len(topt._slices(tp[k])) for k in ("stacked", "wide", "small", "vec")] == [4, 2, 1, 1]
+    (p1, o1), (p2, o2) = runs
+    for (k, a), (_, b) in zip(paths({"p": p1, "o": o1}), paths({"p": p2, "o": o2}), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    assert abs(norms[0] - norms[1]) <= REL * norms[1]
