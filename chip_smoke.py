@@ -73,7 +73,14 @@ Phases, each of which fails the run with a non-zero exit:
                step time, tokens/s, MFU (MFU_NOTE), peak memory, the MoE
                metrics, every kernel of each path launched and no other;
                then one step of each traced (device busy time, idle share,
-               top kernels).
+               top kernels);
+  8. mesh    - h2o-danube-1.8b at full width and depth trained on a (data,
+               model) device mesh through `launch.train.run(mesh=...)`, the
+               state DTensors and the kernels on local shards (MESH_NOTE): (a)
+               one process, NCCL, (data 1, model 1), against phase 7's run;
+               (b) two processes sharing the card over gloo, (data 1, model
+               2), each rank on half the heads, against one device; which
+               collectives gloo takes on CUDA tensors is printed.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -1325,8 +1332,12 @@ def phase_train_parity(dev, cfg, *, batch=1, seq=6144, seed=0):
     if not (np.isfinite(losses["kernels"]) and loss_err <= 2 * floor):
         raise AssertionError(f"train parity {cfg.name}: loss {loss_err} > {2 * floor}")
     worst = _leaf_errors(cfg, runs, list(runs["plain_fp32"]), "")
+    # the whole gradient's bf16 floor (every leaf together), for the mesh phase's grad norm
+    sq = lambda a: sum(float((a(k).float() ** 2).sum()) for k in runs["plain_fp32"])  # noqa: E731
+    grad_floor = (sq(lambda k: runs["plain"][k].float() - runs["plain_fp32"][k].float())
+                  / sq(lambda k: runs["plain_fp32"][k])) ** 0.5
     del runs
-    return {"loss_err": loss_err, "floor": floor, "worst_leaf_ratio": worst,
+    return {"loss_err": loss_err, "floor": floor, "grad_floor": grad_floor, "worst_leaf_ratio": worst,
             **phase_remat_identity(dev, cfg, params=params, data=data)}
 
 
@@ -1587,6 +1598,238 @@ def phase_train_trace(dev, cfg, *, batch=2, seq=6144, remat="selective", optimiz
     return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours}
 
 
+# MESH_NOTE: the mesh phase trains h2o-danube-1.8b at full width and depth on a
+# (data, model) mesh through `launch.train.run(mesh=...)`, the parameters and
+# moments DTensors and the kernels run on each rank's local shards. (a) in this
+# process, a world of one (NCCL), mesh (data 1, model 1), at the training run's
+# shape and seed: each step's loss within TRAIN_NOTE's bar (2 x the bf16 floor
+# of danube's train parity) of phase 7's single-device run, and the kernel
+# launches a step equal to that run's. (b) two processes sharing the one card,
+# gloo (which stages CUDA tensors through the host), mesh (data 1, model 2): each
+# rank runs the kernels on 16 of the 32 query heads and 4 of the 8 kv heads;
+# step 1's loss within the same bar of a single-device run of the same batch,
+# its grad norm within 2 x the whole gradient's bf16 floor (relative), and each
+# rank's launches a step counted. Both are correctness runs: (b)'s collectives
+# cross the host, so its times are no scaling number.
+MESH = dict(batch=2, seq=6144, steps=3)
+MESH_RANKS = dict(ranks=2, batch=1, seq=6144, steps=2)
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_log(what: str, cfg, out: dict, batch: int, seq: int, smi: str) -> str:
+    mem = (out["max_memory_allocated"] or 0) / 2**30
+    return (f"[mesh] {what} {cfg.name} L{cfg.num_layers} d{cfg.d_model} B{batch} x S{seq}: losses "
+            f"{[round(x, 5) for x in out['losses']]}, grad norms "
+            f"{[round(h['grad_norm'], 5) for h in out['history']]}, step times "
+            f"{[round(t, 4) for t in out['step_times']]} s, peak {mem:.2f} GiB ({smi}), launches "
+            f"per step {out['launches_per_step'][-1]}")
+
+
+def _check_launches(what: str, per_step: dict, path) -> None:
+    missing = [k for k in path if per_step.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"mesh {what}: kernels never launched on the main path: {missing}")
+
+
+def phase_mesh(dev, cfg, ref_losses: list, ref_launches: dict, floor: float, smi: str, *,
+               batch=2, seq=6144, steps=3, backend="nccl", init_method=None) -> dict:
+    """MESH_NOTE (a): `cfg` on a (data 1, model 1) mesh of this process alone,
+    against phase 7's run of `cfg` at the same shape and seed: its losses and its
+    kernel launches a step."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=init_method or f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        build.reset_launches()
+        out = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat="selective",
+                        mesh="1x1", log=lambda *_: None)
+        launches = dict(build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    log(_mesh_log("(a) mesh (data 1, model 1), one process,", cfg, out, batch, seq, smi))
+    errs = [abs(a - b) for a, b in zip(out["losses"], ref_losses)]
+    log(f"[mesh] (a) losses against the single-device run {[round(x, 5) for x in ref_losses[:steps]]}: "
+        f"max |diff| {max(errs):.3e} (tolerance {2 * floor:.3e} = 2 x the bf16 floor)")
+    if len(errs) != steps or not all(np.isfinite(out["losses"])) or not max(errs) <= 2 * floor:
+        raise AssertionError(f"mesh (a): losses {out['losses']} vs {ref_losses}")
+    path = train_kernels(cfg)
+    per_step = out["launches_per_step"][-1]
+    _check_launches("(a)", per_step, path)
+    if {k: per_step[k] for k in path} != {k: ref_launches[k] for k in path}:
+        raise AssertionError(f"mesh (a): launches a step {per_step} != {ref_launches}")
+    return {**out, "launches": launches}
+
+
+def _probe_rank(rank: int, world: int, device_type: str, out_dir: str) -> None:
+    """One rank of the collective probe: gloo on card 0's (or the CPU's) tensors, each
+    of all_reduce, all_gather_into_tensor and reduce_scatter_tensor through c10d
+    and then through DTensor's redistributions
+    (the functional collectives the mesh path runs), each logged to
+    `out_dir/probe<rank>.log` before and after it, so that a collective that
+    kills the process is named by the last line it left."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/probe_pg", rank=rank,
+                            world_size=world)
+    mesh = init_device_mesh(device_type, (world,), mesh_dim_names=("model",))
+    x = torch.ones(4 * world, device=dev)
+
+    def dt(placement, to):
+        return lambda: DTensor.from_local(x, mesh, [placement]).redistribute(mesh, [to]).to_local()
+
+    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 torch.empty(4 * world * world, device=dev), x),
+             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                 torch.empty(4, device=dev), x),
+             "DTensor Partial->Replicate (all_reduce)": dt(Partial(), Replicate()),
+             "DTensor Shard->Replicate (all_gather_into_tensor)": dt(Shard(0), Replicate()),
+             "DTensor Partial->Shard (reduce_scatter_tensor)": dt(Partial(), Shard(0))}
+    with open(f"{out_dir}/probe{rank}.log", "w") as f:
+        for name, call in calls.items():
+            print(f"try\t{name}", file=f, flush=True)
+            try:
+                call()
+                if device_type == "cuda":
+                    torch.cuda.synchronize()
+                print(f"ok\t{name}", file=f, flush=True)
+            except Exception as e:  # the probe reports what is refused
+                print(f"refused\t{name}\t{type(e).__name__}: {str(e).splitlines()[0][:160]}",
+                      file=f, flush=True)
+    dist.destroy_process_group()
+
+
+def probe_collectives(device_type: str, ranks: int, timeout: float = 120.0) -> dict:
+    """Which collectives gloo takes on `device_type` tensors across `ranks` processes,
+    through c10d and through DTensor: name -> "ok", the error it raised, or the
+    signal that killed a rank in it."""
+    import shutil
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    ctx = torch.multiprocessing.start_processes(
+        _probe_rank, args=(ranks, device_type, str(MESH_DIR)), nprocs=ranks, join=False,
+        start_method="spawn")
+    died = None
+    try:
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                died = f"still running after {timeout} s"
+                break
+    except torch.multiprocessing.ProcessExitedException as e:
+        died = str(e)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out: dict = {}
+    for r in range(ranks):
+        path = MESH_DIR / f"probe{r}.log"
+        status = {}  # each collective's last line: tried (and then killed), ok, or refused
+        for line in (path.read_text().splitlines() if path.exists() else []):
+            state, name, *err = line.split("\t")
+            status[name] = {"try": f"killed the rank ({died})", "ok": "ok"}.get(state) or err[0]
+        for name, st in status.items():
+            if out.get(name, "ok") == "ok":
+                out[name] = st
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out
+
+
+def _mesh_rank(rank: int, world: int, cfg, device_type: str, batch: int, seq: int, steps: int,
+               out_dir: str) -> None:
+    """One rank of MESH_NOTE (b): gloo through a file under `out_dir`, every rank on
+    card 0 (or the CPU); writes its results to `out_dir/<rank>.pt`."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a crash in a collective names its Python frame
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/pg", rank=rank, world_size=world)
+    try:
+        build.reset_launches()
+        out = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat="selective",
+                        mesh=f"1x{world}", log=lambda *_: None)
+        torch.save({**out, "launches": dict(build.LAUNCHES)}, f"{out_dir}/{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_ranks(dev, cfg, floor: float, grad_floor: float, smi: str, *, ranks=2, batch=1,
+                     seq=6144, steps=2, timeout=900.0) -> list[dict]:
+    """MESH_NOTE (b): `ranks` processes on a (data 1, model `ranks`) mesh, against a
+    single-device run of the same batch in this process. First the collectives
+    are probed (`probe_collectives`); where gloo refuses one on these tensors,
+    (b) is left out, the collective named, and [] returned."""
+    import shutil
+
+    probe = probe_collectives(dev.type, ranks)
+    log(f"[mesh] (b) gloo across {ranks} processes on {dev.type} tensors: {probe}")
+    refused = {k: v for k, v in probe.items() if v != "ok"}
+    if refused or not probe:
+        log(f"[mesh] (b) left out: gloo refuses on {dev.type} tensors {refused or probe} (MESH_NOTE)")
+        return []
+    single = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat="selective",
+                       log=lambda *_: None)
+    log(_mesh_log("(b) single device,", cfg, single, batch, seq, smi))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    ctx = torch.multiprocessing.start_processes(
+        _mesh_rank, args=(ranks, cfg, dev.type, batch, seq, steps, str(MESH_DIR)), nprocs=ranks,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"mesh (b): the ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    outs = [torch.load(MESH_DIR / f"{r}.pt", weights_only=False) for r in range(ranks)]
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    path = train_kernels(cfg)
+    for r, out in enumerate(outs):
+        log(_mesh_log(f"(b) mesh (data 1, model {ranks}), rank {r} of {ranks},", cfg, out, batch, seq, smi))
+    loss_err = abs(outs[0]["losses"][0] - single["losses"][0])
+    g, g1 = single["history"][0]["grad_norm"], outs[0]["history"][0]["grad_norm"]
+    log(f"[mesh] (b) step 1 against one device: loss {outs[0]['losses'][0]:.6f} vs {single['losses'][0]:.6f}, "
+        f"|diff| {loss_err:.3e} (tolerance {2 * floor:.3e}); grad norm {g1:.6f} vs {g:.6f}, rel "
+        f"{abs(g1 - g) / g:.3e} (tolerance {2 * grad_floor:.3e} = 2 x the whole gradient's bf16 floor)")
+    if any(o["losses"] != outs[0]["losses"] for o in outs):
+        raise AssertionError(f"mesh (b): the ranks log other losses: {[o['losses'] for o in outs]}")
+    if not (loss_err <= 2 * floor and abs(g1 - g) / g <= 2 * grad_floor):
+        raise AssertionError(f"mesh (b): step 1 loss {loss_err} or grad norm {abs(g1 - g) / g} past the bar")
+    for r, out in enumerate(outs):
+        _check_launches(f"(b) rank {r}", out["launches_per_step"][-1], path)
+    return outs
+
+
+
 def train_config(arch: str):
     """A training run's config: full width, `layers` deep where TRAIN_RUNS cuts it."""
     cfg = get_config(arch)
@@ -1637,9 +1880,11 @@ def main() -> None:
             f"{(r['max_memory_allocated'] or 0) / 2**30:8.2f}   "
             f"{t['wall_ms']:.3f}, {t['device_ms']:.3f}, {1 - t['device_ms'] / t['wall_ms']:.3f}")
     t_train = time.perf_counter()
+    parity = {}
     for arch, shape in TRAIN_PARITY.items():
         cfg = dataclasses.replace(get_config(arch), num_layers=PARITY_LAYERS.get(arch, 2))
-        (phase_train_parity_moe if cfg.moe else phase_train_parity)(dev, cfg, seed=args.seed, **shape)
+        parity[arch] = (phase_train_parity_moe if cfg.moe else phase_train_parity)(
+            dev, cfg, seed=args.seed, **shape)
         torch.cuda.empty_cache()
     for arch, shape in REMAT_ONLY.items():
         phase_remat_identity(dev, dataclasses.replace(get_config(arch), num_layers=2), seed=args.seed,
@@ -1656,12 +1901,21 @@ def main() -> None:
         phase_train_trace(dev, cfg, batch=run["batch"], seq=run["seq"], remat=run["remat"],
                           optimizer=run.get("optimizer", "adamw"))
         torch.cuda.empty_cache()
+    t7 += time.perf_counter() - t_train
+    t_mesh = time.perf_counter()
+    danube, floors = train_config("h2o_danube_1p8b"), parity["h2o_danube_1p8b"]
+    run7 = trains[danube.name]
+    mesh = phase_mesh(dev, danube, run7["losses"], run7["launches_per_step"], floors["floor"], smi, **MESH)
+    torch.cuda.empty_cache()
+    ranks = phase_mesh_ranks(dev, danube, floors["floor"], floors["grad_floor"], smi, **MESH_RANKS)
     runs = {**{c: r["launches"] for c, r in serves.items()},
-            **{f"train {c}": r["launches"] for c, r in trains.items()}}
-    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 "
-        f"{t7 + time.perf_counter() - t_train:.1f}s")
+            **{f"train {c}": r["launches"] for c, r in trains.items()},
+            f"mesh {danube.name} (1x1)": mesh["launches"],
+            **{f"mesh {danube.name} (1x{len(ranks)}) rank {i}": r["launches"] for i, r in enumerate(ranks)}}
+    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s "
+        f"and the mesh phase {time.perf_counter() - t_mesh:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
-    # over the serve runs and the training runs
+    # over the serve runs, the training runs and the mesh runs (each rank's)
     sources = {**KERNELS, **TRAIN_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],

@@ -7,7 +7,13 @@ dtypes. Reading bfloat16 views the int16 bits as `torch.bfloat16`: no
 `ml_dtypes` is needed. Writes go to a tmp dir, then `os.replace()`, so a
 crash mid-write never corrupts the latest checkpoint. `save` copies the
 state to the host, then writes on a background thread; `wait()` joins it.
-Meshes (JAX's elastic re-shard on restore) come with ROADMAP A6.
+
+On a mesh every rank calls `save`: each DTensor leaf is gathered whole
+(`full_tensor`, a collective) and rank 0 writes JAX's format, so the files do
+not depend on the mesh. `restore` distributes each leaf under the current mesh
+(JAX's elastic re-shard): a DTensor target leaf takes its own mesh and
+placements, or `placements` gives them; every rank reads the file and keeps
+its shard.
 """
 
 from __future__ import annotations
@@ -19,8 +25,16 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
+from repro_torch.parallel.axes import is_dtensor, whole
 from repro_torch.train.tree import paths, tree_map
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(t) -> tuple[np.ndarray, str]:
@@ -60,10 +74,12 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def restore_pytree(path: str, target_tree):
+def restore_pytree(path: str, target_tree, mesh=None, placements=None):
     """Restore into the structure of `target_tree` (a nested dict of tensors):
     shapes are checked, each leaf cast to its target's dtype and put on its
-    target's device."""
+    target's device. A DTensor target leaf comes back a DTensor of its mesh and
+    placements; `placements`, a matching tree of placements (None for a plain
+    leaf), distributes the leaves on `mesh` instead."""
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes = json.load(f).get("dtypes", {})
     with np.load(os.path.join(path, "arrays.npz")) as z:
@@ -75,8 +91,14 @@ def restore_pytree(path: str, target_tree):
         t = arrays[key]
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: {tuple(t.shape)} vs {tuple(leaf.shape)}")
-        return t.to(device=leaf.device, dtype=leaf.dtype)
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
+        if pls.get(key) is not None:
+            return distribute_tensor(t, mesh, pls[key], src_data_rank=None)
+        if is_dtensor(leaf):
+            return distribute_tensor(t, leaf.device_mesh, leaf.placements, src_data_rank=None)
+        return t
 
+    pls = dict(paths(placements)) if placements is not None else {}
     return _nest(target_tree, {k: one(k, v) for k, v in paths(target_tree)})
 
 
@@ -105,15 +127,22 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def wait(self) -> None:
+        """Join the write in flight; in a process group, then wait for every rank, so
+        that a checkpoint rank 0 wrote is there for all."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def save(self, step: int, tree, *, async_: bool = True) -> None:
         self.wait()
         # copy to the host before handing over, so the train loop may update the
-        # device tensors in place at once
-        host_tree = tree_map(lambda t: torch.as_tensor(t).detach().to("cpu", copy=True), tree)
+        # device tensors in place at once; a DTensor leaf gathered whole first
+        host_tree = tree_map(lambda t: whole(torch.as_tensor(t)).detach().to("cpu", copy=True),
+                             tree)
+        if not _writer():
+            return
 
         def work():
             save_pytree(self._step_dir(step), host_tree, step)
@@ -125,11 +154,11 @@ class CheckpointManager:
         else:
             work()
 
-    def restore(self, target_tree, step: int | None = None):
+    def restore(self, target_tree, step: int | None = None, *, mesh=None, placements=None):
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        return restore_pytree(self._step_dir(step), target_tree), step
+        return restore_pytree(self._step_dir(step), target_tree, mesh, placements), step
 
     def _gc(self) -> None:
         steps = self.steps()

@@ -29,5 +29,7 @@ CONFIG = ModelConfig(
         dense_residual=True,
         dense_d_ff=4864,
         capacity_factor=1.25,
+        # the expert ff dims shard over the data axes too (ZeRO-3 style)
+        shard_ff_dp=True,
     ),
 )

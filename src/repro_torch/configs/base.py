@@ -29,7 +29,9 @@ class MoECfg:
     capacity_factor: float = 1.25
     norm_topk: bool = True  # renormalize top-k gate weights
     aux_loss_coef: float = 0.01
-    # JAX's `shard_ff_dp` is left out: it only places experts on a mesh, and the port has none
+    # FSDP-style extra sharding of expert ffn dims over the data axes (arctic-480b):
+    # the ZeRO axes on the ff dim of the experts, gathered at use (`models/moe.py`)
+    shard_ff_dp: bool = False
 
 
 @dataclass(frozen=True)
@@ -129,11 +131,13 @@ class ModelConfig:
 class ParallelConfig:
     """Distribution settings: mesh layout + policies (`repro.configs.base.ParallelConfig`).
 
-    The port trains on one device: it reads `remat`, `grad_compress` and
-    `microbatches`. The mesh and ZeRO fields (`mesh_shape`, `mesh_axes`,
-    `dp_axes`, `tp_axes`, `sequence_parallel`, `context_parallel_axes`,
-    `zero1`, `pp_stages`) are kept field for field and read only from
-    ROADMAP A6 (distribution) onward.
+    Kept field for field. As in JAX, the train step reads `remat`,
+    `grad_compress`, `microbatches` and `zero1` (on a mesh, the gradients in
+    the moments' ZeRO-1 layout); the mesh itself and its rules are the
+    Trainer's (`mesh`, `rules`; `launch/mesh.py`). JAX hands `dp_axes` to its
+    compression, which does not read it; `mesh_shape`, `mesh_axes`, `tp_axes`,
+    `sequence_parallel`, `context_parallel_axes` and `pp_stages` are read by
+    neither package.
     """
 
     mesh_shape: tuple[int, ...] = ()

@@ -6,7 +6,10 @@ flash-attention kernel and decode through the flash-decode kernel; on CPU
 tensors those wrappers run their plain versions. With `kernels=False` the
 plain PyTorch path below runs on any device; it is the oracle the kernels
 are held to on the card. `self_attention` (training) chooses its path as
-JAX's does; see there.
+JAX's does; see there. On a mesh (training) the heads shard over tp: the
+qk-norms, RoPE and the attention core run on each rank's local heads
+(`on_shards`), and the output projection's partial sums meet in JAX's
+`shard(out, "dp", "sp", None)`.
 
 Caches keep JAX's layout, (B, W, Hkv, dh), so parity tests compare like with
 like; the kernels read them through strides. Unlike JAX, which returns new
@@ -23,12 +26,26 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.flash_vjp import flash_attention_vjp
 from repro_torch.models.layers import apply_rope, rms_head_norm
+from repro_torch.parallel.axes import axes_size, is_dtensor, on_shards, shard
 
 NEG_INF = -1e30
 
 
 def _head_norm(scale: torch.Tensor, x: torch.Tensor, kernels: bool) -> torch.Tensor:
-    return rms_ops.rmsnorm(x, scale, eps=1e-6) if kernels else rms_head_norm(scale, x)
+    """The qk-norm over each head's dh, on the local heads on a mesh."""
+    if kernels:
+        return on_shards(lambda t, s: rms_ops.rmsnorm(t, s, eps=1e-6), x, params=(scale,))
+    return on_shards(lambda t, s: rms_head_norm(s, t), x, params=(scale,))
+
+
+def _heads(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, H: int) -> torch.Tensor:
+    """x @ w as (B, S, H, dh). On a mesh the heads stay sharded over tp only where tp
+    divides the kv heads, as q, k and v must be split alike (GSPMD pads the rest)."""
+    B, S, _ = x.shape
+    t = x @ w.to(x.dtype)
+    if is_dtensor(t) and cfg.num_kv_heads % axes_size("tp"):
+        t = shard(t, "dp", None, None)
+    return t.view(B, S, H, cfg.head_dim)
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -36,15 +53,20 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Te
     """x: (B, S, D) -> q (B,S,Hkv,G,dh), k/v (B,S,Hkv,dh), RoPE'd + qk-normed."""
     B, S, _ = x.shape
     Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).view(B, S, Hq, dh)
-    k = (x @ p["wk"].to(x.dtype)).view(B, S, Hkv, dh)
-    v = (x @ p["wv"].to(x.dtype)).view(B, S, Hkv, dh)
+    q = _heads(cfg, x, p["wq"], Hq)
+    k = _heads(cfg, x, p["wk"], Hkv)
+    v = _heads(cfg, x, p["wv"], Hkv)
     if cfg.qk_norm:
         q = _head_norm(p["q_norm"], q, kernels)
         k = _head_norm(p["k_norm"], k, kernels)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q.view(B, S, Hkv, Hq // Hkv, dh), k, v
+    q = on_shards(lambda t: apply_rope(t, positions, cfg.rope_theta), q)
+    k = on_shards(lambda t: apply_rope(t, positions, cfg.rope_theta), k)
+    # heads shard over tp; seq stays unsharded here (sequence parallelism applies
+    # only to the norm / residual regions)
+    q = shard(q.view(B, S, Hkv, Hq // Hkv, dh), "dp", None, "tp", None, None)
+    k = shard(k, "dp", None, "tp", None)
+    v = shard(v, "dp", None, "tp", None)
+    return q, k, v
 
 
 def _dense_attention(q, k, v, q_pos, k_pos, window):
@@ -85,10 +107,11 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     pos = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, pos, kernels)
     if cfg.attn_impl == "dense" or S <= cfg.attn_chunk:
-        out = _dense_attention(q, k, v, pos, pos, cfg.sliding_window)
+        out = on_shards(lambda *t: _dense_attention(*t, pos, pos, cfg.sliding_window), q, k, v)
     else:
         out = flash_attention_vjp(q, k, v, cfg.sliding_window, cfg.attn_chunk, kernels=kernels)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype)
+    out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype)
+    return shard(out, "dp", "sp", None)
 
 
 # ----------------------------------------------------------------- KV caching

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_lse_ref, flash_attention_bwd_ref
+from repro_torch.parallel.axes import on_shards
 
 
 def _model(t, shape):
@@ -66,7 +67,8 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_vjp(q, k, v, window: int | None, chunk: int, *,
                         kernels: bool = True) -> torch.Tensor:
     """Differentiable causal attention, (B, S, Hkv, G, dh): the CUDA kernels on a
-    CUDA tensor with `kernels`, else the plain twin."""
+    CUDA tensor with `kernels`, else the plain twin; on a mesh, either on each
+    rank's local heads."""
     if kernels and q.is_cuda:
-        return fa_ops.FlashAttentionKernels.apply(q, k, v, window)
-    return FlashAttention.apply(q, k, v, window, chunk)
+        return on_shards(lambda *t: fa_ops.FlashAttentionKernels.apply(*t, window), q, k, v)
+    return on_shards(lambda *t: FlashAttention.apply(*t, window, chunk), q, k, v)

@@ -1,13 +1,15 @@
 """Shared layers: norms, rotary embeddings, activations, embedding/lm-head.
 
-Plain PyTorch counterparts of `repro.models.layers`. Sharding annotations
-(`shard(...)`) have no counterpart on one device and are dropped.
+Plain PyTorch counterparts of `repro.models.layers`, with JAX's sharding
+annotations (`shard`, identities off a mesh).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.axes import shard
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -66,13 +68,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def embed_lookup(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The token rows, JAX's `tok[tokens]`. `F.embedding`, whose backward adds a
     repeated token's rows in a fixed order on the CPU and on CUDA (indexing's
-    backward adds them in a varying order on the CPU)."""
-    return F.embedding(tokens, p["tok"]).to(dtype)
+    backward adds them in a varying order on the CPU). On a mesh the table is
+    vocab-sharded over tp: each rank looks up its rows and the sum over tp
+    (`shard`) gives every token's row."""
+    return shard(F.embedding(tokens, p["tok"]).to(dtype), "dp", "sp", None)
 
 
 def lm_logits(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x: (..., d) -> (..., vocab), computed in `dtype` (JAX promotes x to it)."""
-    return x.to(dtype) @ p["w"].to(dtype)
+    """x: (..., d) -> (..., vocab), computed in `dtype` (JAX promotes x to it);
+    vocab-sharded on a mesh."""
+    logits = x.to(dtype) @ p["w"].to(dtype)
+    return shard(logits, "dp", None, "tp") if logits.dim() == 3 else shard(logits, "dp", "tp")
 
 
 def group_norm_heads(p: dict, x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""MLP block: gated (SiLU) or plain. The products stay `torch.matmul`."""
+"""MLP block: gated (SiLU) or plain, Megatron column -> row partitioned on a mesh.
+The products stay `torch.matmul`."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.layers import activation
+from repro_torch.parallel.axes import shard
 
 
 def apply_mlp(p: dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
-    """(B, S, D) or (T, D) -> same rank."""
+    """(B, S, D) or (T, D) -> same rank. One logical all-reduce after wo."""
     act = activation(act_name)
     dt = x.dtype
     h = x @ p["wi"].to(dt)
@@ -16,4 +18,8 @@ def apply_mlp(p: dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
         h = act(x @ p["wg"].to(dt)) * h
     else:
         h = act(h)
-    return h @ p["wo"].to(dt)
+    if x.dim() == 3:
+        h = shard(h, "dp", None, "tp")
+        return shard(h @ p["wo"].to(dt), "dp", "sp", None)
+    h = shard(h, "dp", "tp")
+    return shard(h @ p["wo"].to(dt), "dp", None)

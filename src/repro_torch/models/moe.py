@@ -8,10 +8,12 @@ cumulative counts, and rows are scattered into a static (E, C+1, D) buffer:
 row C is the overflow scratch row, so a dropped assignment needs no dynamic
 shape, and reading row C of the padded output gives it zeros.
 
-Groups. JAX dispatches within G groups, G being the size of its dp mesh
-axes (`_n_groups`), which is 1 off a mesh. The port has no mesh: G = 1, and
-the capacity C is computed from the call's own T = B * S tokens, so prefill,
-decode and `forward` each have their own C.
+Groups. As JAX, the port dispatches within G groups of contiguous tokens, G
+being the size of the dp mesh axes (`_n_groups`), which is 1 off a mesh; the
+capacity C is computed from a group's T / G tokens (T = B * S of the call, so
+prefill, decode and `forward` each have their own C), and the load-balance
+statistics are averaged over the groups. On a mesh each dp shard routes its
+own group, and the experts shard over ep (`_moe_mesh`).
 
 No host synchronisation: the expert counts come from `scatter_add_` over E
 bins (not `bincount`, which reads the input's max on CUDA), and there is no
@@ -41,8 +43,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoECfg
 from repro_torch.models.layers import activation
 from repro_torch.models.mlp import apply_mlp
+from repro_torch.parallel.axes import axes_size, is_dtensor, on_shards, shard
 
 _RECORD: list | None = None  # the open routing record, if any
+STATS = ("me", "ce", "z", "drop")  # a dispatch group's load-balance statistics
 
 
 @contextlib.contextmanager
@@ -92,15 +96,27 @@ def combine(vals: torch.Tensor, w: torch.Tensor, order: torch.Tensor, T: int, K:
     return y
 
 
-def _moe_group(cfg: ModelConfig, p: dict, xf: torch.Tensor, C: int, stats: bool):
-    """Dispatch, expert products and combine for one token group. xf: (T, D)."""
+def _n_groups(T: int) -> int:
+    """Dispatch groups = the data-shard count (GShard-style grouping), 1 off a mesh:
+    routing, sort and scatter / gather happen within a group of T / G contiguous
+    tokens, with a capacity of its own."""
+    g = max(axes_size("dp"), 1)
+    while T % g:
+        g -= 1
+    return g
+
+
+def _dispatch(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor, C: int,
+              stats: bool = True):
+    """Route one token group xf (T, D) and scatter its rows into the (E, C, D)
+    expert buffer: (h, (sorted_e, slot, order, w), the load-balance statistics or
+    None without `stats`)."""
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     dt, dev = xf.dtype, xf.device
-    act = activation(cfg.act)
     T, D = xf.shape
 
-    logits, probs, gate, topi = _route(m, xf, p["router"])
+    logits, probs, gate, topi = _route(m, xf, router)
     A = T * K
     flat_e = topi.reshape(A)
     order = torch.argsort(flat_e, stable=True)  # token priority within an expert
@@ -118,38 +134,100 @@ def _moe_group(cfg: ModelConfig, p: dict, xf: torch.Tensor, C: int, stats: bool)
     # it; `F.embedding` adds a token's K row gradients in a fixed order (`xf[token_of]`'s
     # backward adds them in a varying order on the CPU)
     buf[sorted_e, slot] = F.embedding(token_of, xf)
-    h = buf[:, :C]
-    up = torch.bmm(h, p["wi"].to(dt))
-    if "wg" in p:
-        up = act(torch.bmm(h, p["wg"].to(dt))) * up
-    else:
-        up = act(up)
-    out = torch.cat([torch.bmm(up, p["wo"].to(dt)), torch.zeros(E, 1, D, dtype=dt, device=dev)], 1)
-
-    vals = out[sorted_e, slot]  # (A, D); a dropped assignment reads the zeros row
     w = (gate.reshape(A)[order] * keep).to(dt)
-    y = combine(vals, w, order, T, K)
     if not stats:
-        return y, None
-    return y, {
+        return buf[:, :C], (sorted_e, slot, order, w), None
+    stats = {
         "me": probs.mean(0),
         "ce": counts.float() / A,
         "z": torch.logsumexp(logits, -1).square().mean(),
         "drop": (1.0 - keep.float().mean()).clamp(0.0, 1.0),
     }
+    return buf[:, :C], (sorted_e, slot, order, w), stats
+
+
+def _combine(K: int, out: torch.Tensor, sorted_e, slot, order, w) -> torch.Tensor:
+    """The tokens' outputs (T, D) from the experts' (E, C, D): a dropped assignment
+    reads the zeros row C."""
+    E, _, D = out.shape
+    out = torch.cat([out, torch.zeros(E, 1, D, dtype=out.dtype, device=out.device)], 1)
+    return combine(out[sorted_e, slot], w, order, order.shape[0] // K, K)
+
+
+def _experts(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    """The expert MLPs on their buffer rows: (E, C, D) -> (E, C, D) by `torch.bmm`;
+    on a mesh (G, E, C, D) with G over dp and E over ep, by `torch.einsum`, whose
+    batch dims DTensor keeps sharded."""
+    act, dt = activation(cfg.act), h.dtype
+    if not is_dtensor(h):
+        up = torch.bmm(h, p["wi"].to(dt))
+        if "wg" in p:
+            up = act(torch.bmm(h, p["wg"].to(dt))) * up
+        else:
+            up = act(up)
+        return torch.bmm(up, p["wo"].to(dt))
+    # under `shard_ff_dp` the ff dim is also on the ZeRO axes: gathered at use (ZeRO-3)
+    wi, wo = (shard(p[k], "ep", None, None).to(dt) for k in ("wi", "wo"))
+    up = torch.einsum("gecd,edf->gecf", h, wi)
+    if "wg" in p:
+        up = act(torch.einsum("gecd,edf->gecf", h, shard(p["wg"], "ep", None, None).to(dt))) * up
+    else:
+        up = act(up)
+    return torch.einsum("gecf,efd->gecd", up, wo)
+
+
+def _moe_groups(cfg: ModelConfig, p: dict, x: torch.Tensor, G: int, aux: bool):
+    """The routed experts of x (B, S, D) in G groups of contiguous tokens, one after
+    another: (y (T, D), the groups' statistics stacked (G, ...), or None)."""
+    B, S, D = x.shape
+    T = B * S
+    C = capacity(cfg.moe, T // G)
+    ys, stats = [], []
+    for xg in x.reshape(G, T // G, D):
+        h, route, st = _dispatch(cfg, p["router"], xg, C, aux)
+        ys.append(_combine(cfg.moe.top_k, _experts(cfg, p, h), *route))
+        stats.append(st)
+    y = ys[0] if G == 1 else torch.cat(ys)
+    return y, aux and {k: torch.stack([st[k] for st in stats]) for k in STATS}
+
+
+def _moe_mesh(cfg: ModelConfig, p: dict, x: torch.Tensor, G: int, aux: bool):
+    """`_moe_groups` on a mesh: each dp shard's tokens are its group (JAX's groups of
+    contiguous tokens, the group dim over dp). Each rank routes and scatters its
+    group (`on_shards`; replicated over tp), runs the experts of its ep shard on
+    the buffer, the buffers are gathered back over ep, and it combines its tokens."""
+    B, S, D = x.shape
+    if B % G:
+        raise ValueError(f"batch {B} does not split into the {G} dispatch groups of the dp axes")
+    K, C = cfg.moe.top_k, capacity(cfg.moe, B * S // G)
+
+    def dispatch(xl, router):
+        h, route, st = _dispatch(cfg, router, xl.reshape(-1, D), C)
+        return (h[None], *(t[None] for t in route), *(st[k][None] for k in STATS))
+
+    xg = shard(x, "dp", None, None)
+    h, *rest = on_shards(dispatch, xg, params=(p["router"],), n_out=5 + len(STATS))
+    route, st = rest[:4], dict(zip(STATS, rest[4:]))
+    out = shard(_experts(cfg, p, shard(h, "dp", "ep", None, None)), "dp", None, None, None)
+    y = on_shards(lambda o, *r: _combine(K, o[0], *(t[0] for t in r)).view(-1, S, D),
+                  out, *route)
+    return y.reshape(B * S, D), st
 
 
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *, aux: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux dict of the load-balance metrics).
 
-    With `aux=False` the metrics are not computed and None is returned in
-    their place (JAX computes and discards them in prefill and decode).
+    The routed experts run in `_n_groups` dispatch groups (1 off a mesh), the
+    statistics averaged over the groups as in JAX. With `aux=False` the
+    metrics are not returned (None in their place; JAX computes and discards
+    them in prefill and decode).
     """
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
+    G = _n_groups(T)
+    y, st = (_moe_mesh if is_dtensor(x) else _moe_groups)(cfg, p, x, G, aux)
     xf = x.reshape(T, D)
-    y, stats = _moe_group(cfg, p, xf, capacity(m, T), aux)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], xf, cfg.act)
     if "dense" in p:
@@ -158,9 +236,9 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *, aux: bool = True):
     if not aux:
         return y, None
     return y, {
-        "moe_lb_loss": m.num_experts * (stats["me"] * stats["ce"]).sum(),
-        "moe_z_loss": stats["z"],
-        "moe_drop_frac": stats["drop"],
+        "moe_lb_loss": m.num_experts * (st["me"].mean(0) * st["ce"].mean(0)).sum(),
+        "moe_z_loss": st["z"].mean(),
+        "moe_drop_frac": st["drop"].mean(),
     }
 
 

@@ -12,6 +12,10 @@ stacks its L layers `{ln1, tm, ln2, cm}`.
 Every weight keeps the `x @ W` orientation, `(in, out)`, so no transpose is
 needed anywhere.
 
+Sharding. Each PD carries JAX's logical axes, one a dim (a stacked leaf a
+leading None); `param_specs` resolves them under the current rules, and
+`distribute` places a tree on a DeviceMesh by them (`parallel/axes.py`).
+
 The output head `lm_head/w`. JAX holds it in the param dtype and widens it
 to float32 at each use (`Model._head`), and training keeps that: its grads,
 its AdamW rounding and its checkpoint entry are in the param dtype
@@ -29,21 +33,33 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.axes import logical_spec, placements, sanitize_pspec
 
 HEAD = "lm_head/w"  # drawn or loaded in the param dtype; held in float32 when widened
 
 
 @dataclass(frozen=True)
 class PD:
-    """Parameter definition: shape, initializer, dtype override."""
+    """Parameter definition: shape, logical axes per dim (JAX's), initializer, dtype
+    override."""
 
     shape: tuple[int, ...]
+    logical: tuple[Any, ...]  # one logical name (or None / tuple) a dim
     init: str = "normal"  # normal | zeros | ones | constant
     stddev: float = 0.02
     dtype: torch.dtype | None = None
     constant: float = 0.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
+
+
+def _un(lead: tuple[int, ...]) -> tuple[None, ...]:
+    """The logical axes of leading layer-stack dims: unsharded, as JAX's `stacked`."""
+    return (None,) * len(lead)
 
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "ssm")
@@ -54,34 +70,39 @@ def _norm_defs(cfg: ModelConfig, *lead: int, kind: str | None = None) -> dict:
     norm is `cfg.norm` unless `kind` names one."""
     f32 = torch.float32
     kind = kind or cfg.norm
+    ax = (*_un(lead), None)
     if kind == "rmsnorm":
-        return {"scale": PD((*lead, cfg.d_model), init="ones", dtype=f32)}
+        return {"scale": PD((*lead, cfg.d_model), ax, init="ones", dtype=f32)}
     if kind == "layernorm":
-        return {"scale": PD((*lead, cfg.d_model), init="ones", dtype=f32),
-                "bias": PD((*lead, cfg.d_model), init="zeros", dtype=f32)}
+        return {"scale": PD((*lead, cfg.d_model), ax, init="ones", dtype=f32),
+                "bias": PD((*lead, cfg.d_model), ax, init="zeros", dtype=f32)}
     raise ValueError(f"unknown norm {kind!r}")
 
 
 def _mlp_defs(cfg: ModelConfig, ff: int, *lead: int) -> dict:
-    D = cfg.d_model
-    mlp = {"wi": PD((*lead, D, ff)), "wo": PD((*lead, ff, D))}
+    D, un = cfg.d_model, _un(lead)
+    # Megatron column -> row parallel
+    mlp = {"wi": PD((*lead, D, ff), (*un, None, "tp")), "wo": PD((*lead, ff, D), (*un, "tp", None))}
     if cfg.gated_mlp:
-        mlp["wg"] = PD((*lead, D, ff))
+        mlp["wg"] = PD((*lead, D, ff), (*un, None, "tp"))
     return mlp
 
 
 def _moe_defs(cfg: ModelConfig, *lead: int) -> dict:
     """`repro.models.moe.moe_defs`: the router (held in float32), E experts, the
-    shared experts as one MLP of their summed width, and arctic's dense branch."""
-    m, D = cfg.moe, cfg.d_model
+    shared experts as one MLP of their summed width, and arctic's dense branch.
+    The expert dim shards over ep; under `shard_ff_dp` the ff dim also over the
+    ZeRO axes (ZeRO-3 style: gathered at use, `models/moe.py`)."""
+    m, D, un = cfg.moe, cfg.d_model, _un(lead)
     E, F = m.num_experts, m.d_ff
+    ff_ax = "zero" if m.shard_ff_dp else None
     defs = {
-        "router": PD((*lead, D, E), dtype=torch.float32),
-        "wi": PD((*lead, E, D, F)),
-        "wo": PD((*lead, E, F, D)),
+        "router": PD((*lead, D, E), (*un, None, None), dtype=torch.float32),
+        "wi": PD((*lead, E, D, F), (*un, "ep", None, ff_ax)),
+        "wo": PD((*lead, E, F, D), (*un, "ep", ff_ax, None)),
     }
     if cfg.gated_mlp:
-        defs["wg"] = PD((*lead, E, D, F))
+        defs["wg"] = PD((*lead, E, D, F), (*un, "ep", None, ff_ax))
     if m.num_shared_experts:
         defs["shared"] = _mlp_defs(cfg, F * m.num_shared_experts, *lead)
     if m.dense_residual:
@@ -91,16 +112,17 @@ def _moe_defs(cfg: ModelConfig, *lead: int) -> dict:
 
 def _layer_defs(cfg: ModelConfig, moe_layer: bool, *lead: int) -> dict:
     """One decoder layer; MLP layers of an MoE config are `dense_d_ff` wide."""
-    D, f32 = cfg.d_model, torch.float32
+    D, f32, un = cfg.d_model, torch.float32, _un(lead)
+    col, row = (*un, None, "tp"), (*un, "tp", None)
     attn = {
-        "wq": PD((*lead, D, cfg.q_dim)),
-        "wk": PD((*lead, D, cfg.kv_dim)),
-        "wv": PD((*lead, D, cfg.kv_dim)),
-        "wo": PD((*lead, cfg.q_dim, D)),
+        "wq": PD((*lead, D, cfg.q_dim), col),
+        "wk": PD((*lead, D, cfg.kv_dim), col),
+        "wv": PD((*lead, D, cfg.kv_dim), col),
+        "wo": PD((*lead, cfg.q_dim, D), row),
     }
     if cfg.qk_norm:
-        attn["q_norm"] = PD((*lead, cfg.head_dim), init="ones", dtype=f32)
-        attn["k_norm"] = PD((*lead, cfg.head_dim), init="ones", dtype=f32)
+        attn["q_norm"] = PD((*lead, cfg.head_dim), (*un, None), init="ones", dtype=f32)
+        attn["k_norm"] = PD((*lead, cfg.head_dim), (*un, None), init="ones", dtype=f32)
     d = {"ln1": _norm_defs(cfg, *lead), "attn": attn, "ln2": _norm_defs(cfg, *lead)}
     if moe_layer:
         d["moe"] = _moe_defs(cfg, *lead)
@@ -113,54 +135,57 @@ def _layer_defs(cfg: ModelConfig, moe_layer: bool, *lead: int) -> dict:
 def _mamba2_defs(cfg: ModelConfig, *lead: int) -> dict:
     """`repro.models.mamba2.mamba2_defs`: the in-projection to (z, x, B, C, dt), the
     depthwise conv, and the float32 decay, skip, dt bias and gated-norm gains."""
-    s, D, f32 = cfg.ssm, cfg.d_model, torch.float32
+    s, D, f32, un = cfg.ssm, cfg.d_model, torch.float32, _un(lead)
     d_inner = s.expand * D
     H = d_inner // s.head_dim
     conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    tp = (*un, "tp")
     return {
-        "w_in": PD((*lead, D, 2 * d_inner + 2 * s.n_groups * s.d_state + H)),
-        "conv_w": PD((*lead, conv_dim, s.conv_width), stddev=0.1),
-        "conv_b": PD((*lead, conv_dim), init="zeros"),
-        "a_log": PD((*lead, H), init="constant", constant=0.5, dtype=f32),
-        "d_skip": PD((*lead, H), init="ones", dtype=f32),
-        "dt_bias": PD((*lead, H), init="zeros", dtype=f32),
-        "norm": PD((*lead, d_inner), init="ones", dtype=f32),
-        "w_out": PD((*lead, d_inner, D)),
+        "w_in": PD((*lead, D, 2 * d_inner + 2 * s.n_groups * s.d_state + H), (*un, None, "tp")),
+        "conv_w": PD((*lead, conv_dim, s.conv_width), (*un, "tp", None), stddev=0.1),
+        "conv_b": PD((*lead, conv_dim), tp, init="zeros"),
+        "a_log": PD((*lead, H), tp, init="constant", constant=0.5, dtype=f32),
+        "d_skip": PD((*lead, H), tp, init="ones", dtype=f32),
+        "dt_bias": PD((*lead, H), tp, init="zeros", dtype=f32),
+        "norm": PD((*lead, d_inner), tp, init="ones", dtype=f32),
+        "w_out": PD((*lead, d_inner, D), (*un, "tp", None)),
     }
 
 
 def _rwkv6_layer_defs(cfg: ModelConfig, *lead: int) -> dict:
     """`repro.models.rwkv6.rwkv6_defs` with the layer's two norms, which are
     LayerNorm whatever `cfg.norm` says (`transformer.py::_rwkv_layer_defs`)."""
-    s, D, F, f32 = cfg.ssm, cfg.d_model, cfg.d_ff, torch.float32
+    s, D, F, f32, un = cfg.ssm, cfg.d_model, cfg.d_ff, torch.float32, _un(lead)
     H, k, r = D // s.head_dim, s.mix_dim, s.decay_lora
     ln = _norm_defs(cfg, *lead, kind="layernorm")
+    rep, tp = (*un, None), (*un, "tp")
+    col, row = (*un, None, "tp"), (*un, "tp", None)
     return {
         "ln1": ln,
         "tm": {
-            "maa_x": PD((*lead, D), init="zeros"),
-            "maa": PD((*lead, 5, D), init="zeros"),  # w, k, v, r, g base mixes
-            "mix_w1": PD((*lead, D, 5 * k)),
-            "mix_w2": PD((*lead, 5, k, D)),
-            "w0": PD((*lead, D), init="constant", constant=-4.0, dtype=f32),
-            "w_a": PD((*lead, D, r)),
-            "w_b": PD((*lead, r, D)),
-            "wr": PD((*lead, D, D)),
-            "wk": PD((*lead, D, D)),
-            "wv": PD((*lead, D, D)),
-            "wg": PD((*lead, D, D)),
-            "wo": PD((*lead, D, D)),
-            "u": PD((*lead, H, s.head_dim), dtype=f32),  # the current token's bonus
-            "ln_x": {"scale": PD((*lead, D), init="ones", dtype=f32),
-                     "bias": PD((*lead, D), init="zeros", dtype=f32)},
+            "maa_x": PD((*lead, D), rep, init="zeros"),
+            "maa": PD((*lead, 5, D), (*un, None, None), init="zeros"),  # w, k, v, r, g base mixes
+            "mix_w1": PD((*lead, D, 5 * k), (*un, None, None)),
+            "mix_w2": PD((*lead, 5, k, D), (*un, None, None, None)),
+            "w0": PD((*lead, D), tp, init="constant", constant=-4.0, dtype=f32),
+            "w_a": PD((*lead, D, r), (*un, None, None)),
+            "w_b": PD((*lead, r, D), col),
+            "wr": PD((*lead, D, D), col),
+            "wk": PD((*lead, D, D), col),
+            "wv": PD((*lead, D, D), col),
+            "wg": PD((*lead, D, D), col),
+            "wo": PD((*lead, D, D), row),
+            "u": PD((*lead, H, s.head_dim), row, dtype=f32),  # the current token's bonus
+            "ln_x": {"scale": PD((*lead, D), tp, init="ones", dtype=f32),
+                     "bias": PD((*lead, D), tp, init="zeros", dtype=f32)},
         },
         "ln2": dict(ln),
         "cm": {
-            "mu_k": PD((*lead, D), init="zeros"),
-            "mu_r": PD((*lead, D), init="zeros"),
-            "wk": PD((*lead, D, F)),
-            "wv": PD((*lead, F, D)),
-            "wr": PD((*lead, D, D)),
+            "mu_k": PD((*lead, D), rep, init="zeros"),
+            "mu_r": PD((*lead, D), rep, init="zeros"),
+            "wk": PD((*lead, D, F), col),
+            "wv": PD((*lead, F, D), row),
+            "wr": PD((*lead, D, D), col),
         },
     }
 
@@ -183,7 +208,8 @@ def param_defs(cfg: ModelConfig) -> dict:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     n_head = n_head_layers(cfg)
     defs: dict[str, Any] = {
-        "embed": {"tok": PD((cfg.vocab_size, cfg.d_model))},
+        # vocab-sharded over tp (Megatron-style embedding parallelism)
+        "embed": {"tok": PD((cfg.vocab_size, cfg.d_model), ("tp", None))},
         "final_norm": _norm_defs(cfg),
     }
     if cfg.family == "hybrid":
@@ -197,7 +223,7 @@ def param_defs(cfg: ModelConfig) -> dict:
             defs["head_layers"] = {str(i): _layer_defs(cfg, False) for i in range(n_head)}
         defs["layers"] = _layer_defs(cfg, cfg.moe is not None, cfg.num_layers - n_head)
     if not cfg.tie_embeddings:
-        defs["lm_head"] = {"w": PD((cfg.d_model, cfg.vocab_size))}
+        defs["lm_head"] = {"w": PD((cfg.d_model, cfg.vocab_size), (None, "tp"))}
     return defs
 
 
@@ -219,6 +245,31 @@ def _set(tree: dict, path: str, value) -> None:
 
 def count_params(cfg: ModelConfig) -> int:
     return sum(int(np.prod(pd.shape)) for _, pd in _walk(param_defs(cfg)))
+
+
+def param_specs(defs: dict) -> dict:
+    """The spec tree of a PD tree under the current rules (JAX's `param_specs`)."""
+    return {k: param_specs(v) if isinstance(v, dict) else logical_spec(*v.logical)
+            for k, v in defs.items()}
+
+
+def param_shapes(defs: dict) -> dict:
+    """The shape tree of a PD tree."""
+    return {k: param_shapes(v) if isinstance(v, dict) else v.shape for k, v in defs.items()}
+
+
+def distribute(tree: dict, specs: dict, mesh) -> dict:
+    """Each tensor of `tree` as a DTensor on `mesh`, placed by its spec (sanitized
+    against its shape, as JAX's trainer sanitizes its shardings). Every rank holds
+    the whole tensor already, so each keeps its own shard: nothing is sent."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = distribute(v, specs[k], mesh)
+            continue
+        spec = sanitize_pspec(specs[k], tuple(v.shape), mesh)
+        out[k] = distribute_tensor(v, mesh, placements(spec, mesh), src_data_rank=None)
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int, device: torch.device, *,

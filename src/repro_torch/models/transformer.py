@@ -58,8 +58,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
-from repro_torch.models.params import (FAMILIES, count_params, init_params,
-                                       layer_params, n_head_layers, unstacked_layers)
+from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
+                                       n_head_layers, param_defs, param_specs, unstacked_layers)
+from repro_torch.parallel.axes import on_shards, shard, whole
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # the slot axis of every cache leaf, by the part of the cache it is in
@@ -117,8 +118,13 @@ def zero_aux(device) -> dict:
 
 
 def _norm(p: dict, x: torch.Tensor, kernels: bool) -> torch.Tensor:
-    """RMSNorm through its kernel on the kernel path; LayerNorm (a bias) is plain."""
-    return rms_ops.rmsnorm(x, p["scale"]) if kernels and "bias" not in p else apply_norm(p, x)
+    """RMSNorm through its kernel on the kernel path; LayerNorm (a bias) is plain.
+    On a mesh, on each rank's rows (`on_shards`)."""
+    if kernels and "bias" not in p:
+        return on_shards(rms_ops.rmsnorm, x, params=(p["scale"],))
+    keys = sorted(p)
+    return on_shards(lambda t, *w: apply_norm(dict(zip(keys, w)), t), x,
+                     params=tuple(p[k] for k in keys))
 
 
 def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
@@ -132,14 +138,14 @@ def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
     else:
         a, _ = attn.decode_attention(cfg, p["attn"], h, cache, pos, kernels=kernels)
     if kernels and "bias" not in p["ln2"]:  # RMSNorm: the fused residual-add kernel
-        h, x = rms_ops.rmsnorm_residual(x, a, p["ln2"]["scale"])
+        h, x = on_shards(rms_ops.rmsnorm_residual, x, a, params=(p["ln2"]["scale"],), n_out=2)
     else:
         x = x + a
-        h = apply_norm(p["ln2"], x)
+        h = _norm(p["ln2"], x, False)
     if "moe" in p:
         m, aux = moe.apply_moe(cfg, p["moe"], h, aux=mode == "forward")
-        return x + m, aux
-    return x + apply_mlp(p["mlp"], h, cfg.act), None
+        return shard(x + m, "dp", "sp", None), aux
+    return shard(x + apply_mlp(p["mlp"], h, cfg.act), "dp", "sp", None), None
 
 
 def _fill(cache: dict, state: dict) -> None:
@@ -160,7 +166,7 @@ def _apply_mamba_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
     m, state = mamba2.mamba2_seq(cfg, p["mamba"], h)
     if mode == "prefill":
         _fill(cache, state)
-    return x + m, None
+    return shard(x + m, "dp", "sp", None), None
 
 
 def _apply_rwkv_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
@@ -175,7 +181,7 @@ def _apply_rwkv_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=
     c, cm = rwkv6.channel_mix_seq(cfg, p["cm"], apply_norm(p["ln2"], x))
     if mode == "prefill":
         _fill(cache, {"tm": tm, "cm": cm})
-    return x + c, None
+    return shard(x + c, "dp", "sp", None), None
 
 
 def _at(tree, *idx):
@@ -233,6 +239,10 @@ class Model:
     def param_count(self) -> int:
         return count_params(self.cfg)
 
+    def pspecs(self) -> dict:
+        """The spec of every parameter under the current rules (JAX's `Model.pspecs`)."""
+        return param_specs(param_defs(self.cfg))
+
     def _blocks(self, params: dict, cache: dict | None = None) -> list:
         """(apply function, parameters, cache views or None) of every block in order."""
         if self.is_hybrid:
@@ -262,8 +272,10 @@ class Model:
     def _inputs_to_hidden(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         if cfg.input_mode == "embeds" and "embeds" in batch:
-            return batch["embeds"].to(cfg.compute_dtype)
-        return embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+            x = batch["embeds"].to(cfg.compute_dtype)
+        else:
+            x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+        return shard(x, "dp", "sp", None)
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         p = params.get("lm_head")
@@ -320,6 +332,10 @@ class Model:
     def _chunk_loss(self, params: dict, xc: torch.Tensor, y: torch.Tensor):
         """(summed nll, valid count, hits) of one chunk, from its fp32 logits."""
         logits = self._head(params, xc)  # (B, chunk, V) fp32
+        # on a mesh the logits are vocab-sharded over tp; logsumexp and argmax have
+        # no DTensor strategy that keeps a reduced dim sharded: gather the chunk's
+        # logits over tp before them
+        logits = shard(logits, "dp", None, None)
         valid = (y >= 0).float()
         gold = logits.gather(-1, y.clamp_min(0)[..., None])[..., 0]
         nll = ((torch.logsumexp(logits, -1) - gold) * valid).sum()
@@ -334,9 +350,13 @@ class Model:
         checkpointed and its logits recomputed in the backward, as JAX's
         `jax.checkpoint(chunk_loss)`. An MoE config adds `aux_loss_coef` times
         the load-balance and z losses to the CE. `remat` goes to `forward`.
+        On a mesh the sums are reduced over the data axes and the loss and the
+        metrics are plain tensors, the same on every rank.
         """
         cfg = self.cfg
         x, aux = self.forward(params, batch, remat=remat)
+        # the chunks cut the sequence dim: it must not be sharded (sequence parallelism)
+        x = shard(x, "dp", None, None)
         labels = batch["labels"]
         B, S, _ = x.shape
         chunk = min(cfg.loss_chunk, S)
@@ -349,6 +369,8 @@ class Model:
         for c in range(0, S, chunk):
             nll, cnt, hit = chunk_loss(x[:, c:c + chunk], labels[:, c:c + chunk].long())
             tot, n, hits = tot + nll, n + cnt, hits + hit
+        tot, n, hits = whole(tot), whole(n), whole(hits)
+        aux = {k: whole(v) for k, v in aux.items()}
         n = n.clamp_min(1.0)
         ce = loss = tot / n
         if cfg.moe is not None:

@@ -3,8 +3,12 @@ compression) -> AdamW.
 
 Microbatch gradient accumulation, JAX's three remat policies
 (`none`/`selective`/`full`, `models/transformer.py::remat_wrap`) and int8
-gradient compression with error feedback, on one device. ZeRO and meshes
-come with distribution (ROADMAP A6).
+gradient compression with error feedback. On a mesh (the params DTensors,
+under `use_mesh`) every gradient comes out of autograd with the placements
+its backward gave it, a partial sum over the data axes for the replicated
+ones; `_zero1_shard_grads` puts it in its moments' ZeRO-1 layout (the
+reduce-scatter GSPMD inserts for JAX's constraint), or without `zero1` in its
+parameter's own layout (the data-parallel all-reduce).
 
 Every family trains, held to JAX's gradients: dense, vlm and audio; the MoE
 configs with their load-balance and z losses; the hybrid (Mamba2 + a shared
@@ -17,9 +21,12 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.models.transformer import Model
+from repro_torch.parallel.axes import (current_mesh, is_dtensor, placements, sanitize_pspec,
+                                       shard)
 from repro_torch.parallel.compression import compress_gradients
-from repro_torch.train.optimizer import adamw_update
+from repro_torch.train.optimizer import _zero1_spec, adamw_update
 from repro_torch.train.tree import leaves, tree_map
+
 
 def _unflatten(tree: dict, flat: list):
     """`flat` (in `leaves` order) in the structure of `tree`."""
@@ -29,6 +36,16 @@ def _unflatten(tree: dict, flat: list):
         return {k: build(t[k]) for k in sorted(t)} if isinstance(t, dict) else next(it)
 
     return build(tree)
+
+
+def _rows(v: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Rows [start, stop) of a batch tensor: a microbatch. On a mesh it is a block of
+    the global batch's rows, placed over dp again; slicing a dim sharded over dp has
+    no DTensor strategy, so the (integer or embedding) batch is gathered first."""
+    if not is_dtensor(v):
+        return v[start:stop]
+    rest = (None,) * (v.dim() - 1)
+    return shard(shard(v, None, *rest)[start:stop], "dp", *rest)
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict, remat: str | None = None):
@@ -48,8 +65,23 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
     on the state's device. The metrics are 0-d tensors: JAX's loss metrics
     (`loss`, `ce`, `accuracy` and the MoE aux keys), `grad_norm` and `lr`.
     """
+    def _zero1_shard_grads(grads):
+        mesh = current_mesh()
+        if mesh is None:
+            return grads
+
+        def one(g, spec):
+            if not is_dtensor(g):
+                return g
+            spec = _zero1_spec(spec, tuple(g.shape)) if pcfg.zero1 else spec
+            spec = sanitize_pspec(spec, tuple(g.shape), g.device_mesh)
+            return g.redistribute(g.device_mesh, placements(spec, g.device_mesh))
+
+        return tree_map(one, grads, model.pspecs())
+
     def grads_of(params, batch):
-        return loss_and_grads(model, params, batch, pcfg.remat)
+        grads, metrics = loss_and_grads(model, params, batch, pcfg.remat)
+        return _zero1_shard_grads(grads), metrics
 
     def accumulate(params, batch):
         n = pcfg.microbatches
@@ -58,7 +90,7 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
         B = next(iter(batch.values())).shape[0]
         if B % n:
             raise ValueError(f"batch {B} is not a multiple of microbatches {n}")
-        micro = [{k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
+        micro = [{k: _rows(v, i * (B // n), (i + 1) * (B // n)) for k, v in batch.items()}
                  for i in range(n)]
         # the first microbatch seeds the accumulators, as JAX's scan does
         g0, m0 = grads_of(params, micro[0])

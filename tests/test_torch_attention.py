@@ -23,6 +23,7 @@ from repro.models.transformer import Model as JaxModel
 from repro_torch.configs import get_config
 from repro_torch.models import attention as tattn
 from repro_torch.models.params import from_jax, layer_params
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 2e-5

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import Model
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 B, S0, STEPS = 2, 48, 4

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention.ref import attention_lse_ref, flash_att
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd as rms_bwd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 from torch_replay import gather, tma_box
+from torch_threads import one_thread  # noqa: F401
 
 REL_TOL = 1e-2  # BWD_BAR_NOTE: the backward kernels' bf16 bar
 

@@ -22,6 +22,7 @@ from repro.models.layers import apply_norm, rms_head_norm
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 from repro_torch.models import flash_vjp as tfv
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5
 

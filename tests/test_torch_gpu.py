@@ -536,3 +536,45 @@ def test_train_step_on_cuda_matches_cpu(dev):
     for a, b in zip(hist["cuda"], hist["cpu"]):
         for k in ("loss", "grad_norm", "lr"):
             assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), k
+
+
+@pytest.mark.parametrize("arch,over", [("qwen3_14b", {}), ("h2o_danube_1p8b", {"attn_impl": "chunked"})])
+def test_mesh_of_one_on_cuda_computes_the_single_device_step(dev, tmp_path, arch, over):
+    """A (data 1, model 1) mesh of one NCCL process: the parameters DTensors and every
+    kernel entered through `local_map` on its local shard (the whole tensor here),
+    so the loss and every gradient equal one device's bit for bit, with as many
+    launches of each kernel (qwen3's qk-norms; danube's flash VJP, S 64 past
+    attn_chunk 16 and the window)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.axes import make_rules, whole
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.tree import paths
+
+    cfg = get_config(arch).reduced(**over)
+    batch = SyntheticLM(cfg.vocab_size, 64, 2).batch(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        runs = []
+        for m in (None, mesh):
+            tr = Trainer(Model(cfg), ParallelConfig(), TrainConfig(), dev, mesh=m,
+                         rules=make_rules(dp=("data",), tp=("model",)))
+            state = tr.init_state()
+            n0 = dict(build.LAUNCHES)
+            with tr._ctx():
+                grads, met = loss_and_grads(tr.model, state["params"], tr._batch(batch), "selective")
+            torch.cuda.synchronize()
+            runs.append(({k: whole(v) for k, v in paths(grads)}, met,
+                         {k: build.LAUNCHES[k] - n0[k] for k in n0}))
+    finally:
+        dist.destroy_process_group()
+    (g0, m0, n0), (g1, m1, n1) = runs
+    assert n0 == n1 and n1["rmsnorm"] > 0 and n1["rmsnorm_bwd"] > 0
+    assert torch.equal(m0["loss"], m1["loss"])
+    for k, v in g0.items():
+        assert torch.equal(v, g1[k]), k

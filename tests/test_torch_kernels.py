@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kernel
 from torch_replay import gather, tma_box
+from torch_threads import one_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]

@@ -14,6 +14,7 @@ from repro.models import layers as jl
 from repro.models.mlp import apply_mlp as jax_apply_mlp
 from repro_torch.models import layers as tl
 from repro_torch.models.mlp import apply_mlp
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 2e-5
 

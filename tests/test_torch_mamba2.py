@@ -48,6 +48,7 @@ from repro_torch.models import mamba2
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import SLOT_AXES, Model, cache_leaves
 from repro_torch.serve.engine import Request, ServeEngine
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow  # JAX compiles each shape and model
 

@@ -19,6 +19,7 @@ from repro.models.transformer import Model as JaxModel
 from repro_torch.configs import get_config
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import Model
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow  # JAX compiles the reduced model
 

@@ -41,6 +41,7 @@ from repro_torch.models import moe
 from repro_torch.models.params import from_jax, layer_params
 from repro_torch.models.transformer import Model
 from repro_torch.serve.engine import Request, ServeEngine
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow  # JAX compiles each reduced model
 

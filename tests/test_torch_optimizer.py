@@ -23,6 +23,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.parallel import compression as tcomp
 from repro_torch.train import optimizer as topt
 from repro_torch.train.tree import paths
+from torch_threads import one_thread  # noqa: F401
 
 REL = 1e-6
 

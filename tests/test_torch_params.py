@@ -14,6 +14,7 @@ from repro.models.transformer import Model as JaxModel
 from repro_torch.configs import ALIASES, ARCHS, get_config
 from repro_torch.models import params as tparams
 from repro_torch.models.transformer import Model
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 # each dense-family config, with JAX's Model.param_count() at full size
@@ -52,9 +53,9 @@ def test_config_fields_match_jax(reduced, arch):
         if f.name == "moe" and ours.moe is not None:  # two MoECfg types: field by field
             for g in dataclasses.fields(ours.moe):
                 assert getattr(ours.moe, g.name) == getattr(theirs.moe, g.name), g.name
-            # JAX's shard_ff_dp only places experts on a mesh, which the port has not
-            assert {g.name for g in dataclasses.fields(theirs.moe)} - {
-                g.name for g in dataclasses.fields(ours.moe)} == {"shard_ff_dp"}
+            # every field, `shard_ff_dp` too (it places the experts on a mesh)
+            assert {g.name for g in dataclasses.fields(theirs.moe)} == {
+                g.name for g in dataclasses.fields(ours.moe)}
             continue
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
     assert (ours.q_dim, ours.kv_dim) == (theirs.q_dim, theirs.kv_dim)

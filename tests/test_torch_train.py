@@ -10,12 +10,11 @@ grad_norm and lr within 1e-5 relative (GRAD_REL; the same function with sums
 in another order); gradients leaf by leaf within 1e-5 of the leaf's largest
 magnitude; parameters after three AdamW steps within PARAM_REL of theirs
 (see there). Also: remat invariance, microbatches with compression and int8
-moments, the bf16 head, the data pipeline, checkpoints both ways, a resumed
-Trainer and the launcher. The MoE, hybrid and RWKV6 families are held to JAX
-in `test_torch_train_families.py`.
+moments, the bf16 head, the data pipeline and checkpoints both ways. The
+MoE, hybrid and RWKV6 families are held to JAX in
+`test_torch_train_families.py`; the Trainer and the launcher are tested in
+`test_torch_trainer.py`.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -37,12 +36,12 @@ from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.data import pipeline as tdata
-from repro_torch.launch import train as tlaunch
 from repro_torch.models.params import state_from_jax
 from repro_torch.models.transformer import Model
 from repro_torch.train.train_step import loss_and_grads, make_train_step
 from repro_torch.train.trainer import Trainer
 from repro_torch.train.tree import paths
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 GRAD_REL = 1e-5
@@ -255,55 +254,3 @@ def test_bf16_checkpoint_round_trip(tmp_path):
     for (k, a), (_, b) in zip(paths(back), paths(state)):
         assert a.dtype == b.dtype and torch.equal(a, b), k
     assert state["params"]["lm_head"]["w"].dtype == torch.bfloat16
-
-
-def test_trainer_resume_is_bit_for_bit(tmp_path):
-    """4 steps straight against 2 steps, a checkpoint, and a fresh Trainer that
-    resumes at step 2 and takes steps 2-3 of the same data."""
-    cfg = get_config("h2o_danube_1p8b").reduced(attn_impl="chunked")
-    data = tdata.SyntheticLM(cfg.vocab_size, S, 2)
-    quiet = dict(log=lambda *_: None)
-    straight = Trainer(Model(cfg), ParallelConfig(), TrainConfig(**TCFG), CPU)
-    _, hist = straight.fit(straight.init_state(), data, steps=4, **quiet)
-    tc = TrainConfig(**TCFG, checkpoint_dir=str(tmp_path), checkpoint_every=2)
-    first = Trainer(Model(cfg), ParallelConfig(), tc, CPU)
-    first.fit(first.init_state(), data, steps=2, **quiet)
-    second = Trainer(Model(cfg), ParallelConfig(), tc, CPU)
-    state, start = second.resume()
-    assert start == 2
-    _, resumed = second.fit(state, data, steps=2, start_step=start, **quiet)
-    assert [h["loss"] for h in resumed] == [h["loss"] for h in hist[2:]]
-    assert [h["grad_norm"] for h in resumed] == [h["grad_norm"] for h in hist[2:]]
-
-
-def test_training_reduces_the_loss():
-    """The quickstart's check, through the launcher's `run` on the CPU."""
-    cfg = get_config("qwen3_14b").reduced(num_layers=2, d_model=128, d_ff=256)
-    out = tlaunch.run(cfg, device="cpu", batch=8, seq=32, steps=30, log=lambda *_: None)
-    assert len(out["losses"]) == 30 and all(np.isfinite(out["losses"]))
-    assert np.mean(out["losses"][-5:]) < out["losses"][0] - 0.3
-    assert out["max_memory_allocated"] is None  # not a device number on the CPU
-    assert all(not any(n.values()) for n in out["launches_per_step"])  # plain versions: no launch
-
-
-def test_launcher_command_line(monkeypatch, capsys):
-    monkeypatch.setattr("sys.argv", ["train", "--arch", "starcoder2-3b", "--device", "cpu",
-                                     "--steps", "2", "--batch", "2", "--seq", "32"])
-    tlaunch.main()
-    assert "done: final loss" in capsys.readouterr().out
-    for flag in (["--mesh", "2x4"], ["--auto-plan"]):
-        monkeypatch.setattr("sys.argv", ["train", "--arch", "qwen3-14b", "--device", "cpu", *flag])
-        with pytest.raises(SystemExit, match="ROADMAP A"):
-            tlaunch.main()
-
-
-def test_embeds_batch_trains_the_rest():
-    """A vlm config fed embeds: its token table gets zero gradients, as in JAX."""
-    cfg = dataclasses.replace(get_config("pixtral_12b").reduced(), input_mode="embeds")
-    model = Model(cfg)
-    params = model.init(0, CPU, widen_head=False)
-    rng = np.random.default_rng(0)
-    batch = {"embeds": torch.from_numpy(rng.standard_normal((2, 32, cfg.d_model), dtype=np.float32)),
-             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))}
-    grads, _ = loss_and_grads(model, params, batch, "selective")
-    assert not grads["embed"]["tok"].any() and grads["lm_head"]["w"].any()

@@ -8,7 +8,7 @@ Mamba2 layers] and a one-layer tail) through the flash VJP twin at S = 320,
 past one 256-token Mamba2 chunk, and rwkv6-7b under remat `full`, JAX's
 policy for it. Also: rwkv6 with int8 moments, the remat policies bit for
 bit with JAX's checkpoint structure, checkpoints both ways with JAX, and the
-launcher on every family.
+launcher on every family. zamba2's train steps run from two files of their own.
 """
 
 import numpy as np
@@ -35,6 +35,7 @@ from repro_torch.train.trainer import Trainer
 from repro_torch.train.tree import paths
 from test_torch_train import (CPU, GRAD_REL, PARAM_REL, TCFG, _batches, _configs, _leaves_close,
                               _run_both, _state)
+from torch_threads import one_thread  # noqa: F401
 
 # case: (arch, config overrides, ParallelConfig fields, batch, sequence, steps the
 # parameters are held after)
@@ -88,9 +89,7 @@ def _torch_batch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("case", CASES)
-def test_train_step_matches_jax(case):
+def train_step_case(case):
     """The first batch's gradients leaf by leaf against `jax.grad` under the case's
     remat policy (DECAY_NOTE), then three train steps: loss, grad_norm and lr each
     step at GRAD_REL, the parameters at PARAM_REL after them (not at S = 320:
@@ -111,6 +110,14 @@ def test_train_step_matches_jax(case):
 
     _run_both(jm, jstate, state, Model(cfg), ParallelConfig(**pc), JaxParallelConfig(**pc),
               TrainConfig(**TCFG), JaxTrainConfig(**TCFG), batches, params_alike)
+
+
+# zamba2's two cases, the longest, each in a file of its own
+# (`test_torch_train_zamba2.py`, `test_torch_train_zamba2_s320.py`)
+@pytest.mark.slow
+@pytest.mark.parametrize("case", [c for c in CASES if not c.startswith("zamba2")])
+def test_train_step_matches_jax(case):
+    train_step_case(case)
 
 
 @pytest.mark.slow
