@@ -80,7 +80,21 @@ Phases, each of which fails the run with a non-zero exit:
                one process, NCCL, (data 1, model 1), against phase 7's run;
                (b) two processes sharing the card over gloo, (data 1, model
                2), each rank on half the heads, against one device; which
-               collectives gloo takes on CUDA tensors is printed.
+               collectives gloo takes on CUDA tensors is printed; (c)
+               zamba2-1.2b at full width and depth and (d) rwkv6-7b at full
+               width and 2 layers on the (data 1, model 1) NCCL mesh under
+               `rules_for(mesh)`, sequence parallelism on (MESH_SP_NOTE);
+  9. cp serve - qwen3-14b at full width and depth served on that mesh under
+               JAX's decode rules with context parallelism on "data": one
+               prompt, greedy decode steps, the KV cache placed per
+               `Model.cache_pspecs(cp=True)` and decode joining the ranks'
+               partial outputs by their log-sum-exps (CP_NOTE), against the
+               single-device kernel path;
+ 10. split   - the decode kernel's LSE output: a cache cut into 2 and 4
+               contiguous parts, some with no valid slot, each part through
+               the kernel, joined by `lse_combine`, against the whole cache's
+               kernel and its plain version (SPLIT_NOTE); the kernel timed with
+               and without the LSE output.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -120,10 +134,13 @@ from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref, rmsnorm_ref,  # no
                                              rmsnorm_residual_ref)
 from repro_torch.configs.base import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, rules_for  # noqa: E402
 from repro_torch.launch.serve import run as serve_run  # noqa: E402
 from repro_torch.launch.train import run as train_run  # noqa: E402
 from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
-from repro_torch.models.params import _walk, layer_params, param_defs  # noqa: E402
+from repro_torch.models.params import _walk, distribute, layer_params, param_defs  # noqa: E402
+from repro_torch.parallel.axes import (lse_combine, make_rules, placements,  # noqa: E402
+                                       sanitize_pspec, use_mesh)
 from repro_torch.models.transformer import (AUX_KEYS, Model, _apply_mamba_layer,  # noqa: E402
                                             _apply_rwkv_layer, saved_record)
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
@@ -205,7 +222,8 @@ SERVE_TRAFFIC = {
 # [shared block, 1 Mamba2 layer], so both cache forms of the shared block run
 PARITY_LAYERS = {"zamba2_1p2b": 7}
 # ported configs that one card cannot hold, and why: phases 4-6 leave them out
-NOT_ON_ONE_CARD = {"arctic_480b": "~960 GB of bf16 experts: waits for distribution (ROADMAP A6)"}
+NOT_ON_ONE_CARD = {"arctic_480b": "~960 GB of bf16 experts: needs a mesh of more than one card "
+                                  "(ROADMAP A6.6)"}
 
 # the backward kernels of the training path (phase 7): not ports of TPU kernels,
 # since JAX computes both in jnp; `replaces` names that jnp counterpart
@@ -1639,34 +1657,81 @@ def _check_launches(what: str, per_step: dict, path) -> None:
         raise AssertionError(f"mesh {what}: kernels never launched on the main path: {missing}")
 
 
-def phase_mesh(dev, cfg, ref_losses: list, ref_launches: dict, floor: float, smi: str, *,
-               batch=2, seq=6144, steps=3, backend="nccl", init_method=None) -> dict:
-    """MESH_NOTE (a): `cfg` on a (data 1, model 1) mesh of this process alone,
-    against phase 7's run of `cfg` at the same shape and seed: its losses and its
-    kernel launches a step."""
+def _one_rank_group(backend: str, init_method):
+    """The default process group as a world of this process alone."""
     import torch.distributed as dist
 
     dist.init_process_group(backend, init_method=init_method or f"tcp://localhost:{_free_port()}",
                             world_size=1, rank=0)
+
+
+def phase_mesh(dev, cfg, ref_losses: list, ref_launches: dict, floor: float, smi: str, *,
+               batch=2, seq=6144, steps=3, backend="nccl", init_method=None, sp=False,
+               label="(a)", remat="selective", optimizer="adamw") -> dict:
+    """MESH_NOTE (a): `cfg` on a (data 1, model 1) mesh of this process alone,
+    against a single-device run of `cfg` at the same shape and seed (phase 7's):
+    its losses and its kernel launches a step, no kernel off its path. With
+    `sp`, under `rules_for(mesh)`, sequence parallelism on (MESH_SP_NOTE);
+    else JAX's launcher rules."""
+    import torch.distributed as dist
+
+    _one_rank_group(backend, init_method)
     try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        rules = rules_for(mesh) if sp else None
         build.reset_launches()
-        out = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat="selective",
-                        mesh="1x1", log=lambda *_: None)
+        out = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat=remat,
+                        optimizer=optimizer, mesh=mesh, rules=rules, log=lambda *_: None)
         launches = dict(build.LAUNCHES)
     finally:
         dist.destroy_process_group()
-    log(_mesh_log("(a) mesh (data 1, model 1), one process,", cfg, out, batch, seq, smi))
+    what = f"{label} mesh (data 1, model 1), one process" + (", sequence parallel," if sp else ",")
+    log(_mesh_log(what, cfg, out, batch, seq, smi))
     errs = [abs(a - b) for a, b in zip(out["losses"], ref_losses)]
-    log(f"[mesh] (a) losses against the single-device run {[round(x, 5) for x in ref_losses[:steps]]}: "
+    log(f"[mesh] {label} losses against the single-device run {[round(x, 5) for x in ref_losses[:steps]]}: "
         f"max |diff| {max(errs):.3e} (tolerance {2 * floor:.3e} = 2 x the bf16 floor)")
     if len(errs) != steps or not all(np.isfinite(out["losses"])) or not max(errs) <= 2 * floor:
-        raise AssertionError(f"mesh (a): losses {out['losses']} vs {ref_losses}")
+        raise AssertionError(f"mesh {label}: losses {out['losses']} vs {ref_losses}")
     path = train_kernels(cfg)
     per_step = out["launches_per_step"][-1]
-    _check_launches("(a)", per_step, path)
+    _check_launches(label, per_step, path)
     if {k: per_step[k] for k in path} != {k: ref_launches[k] for k in path}:
-        raise AssertionError(f"mesh (a): launches a step {per_step} != {ref_launches}")
+        raise AssertionError(f"mesh {label}: launches a step {per_step} != {ref_launches}")
+    stray = [k for k, n in per_step.items() if n and k not in path]
+    if stray:
+        raise AssertionError(f"mesh {label}: kernels off {cfg.name}'s training path launched: {stray}")
+    if dev.type == "cuda":
+        log(f"[mesh] {label} {cfg.name}: peak {(out['max_memory_allocated'] or 0) / 2**30:.2f} GiB "
+            f"({smi})")
     return {**out, "launches": launches}
+
+
+def _loss_floor(dev, cfg, *, batch: int, seq: int, seed: int = 0) -> float:
+    """TRAIN_NOTE's floor of a config without kernels on its path: the mean per-token
+    |CE| difference of the bf16 and float32 forward on a seeded batch, at the
+    training run's init."""
+    params, data = _train_inputs(cfg, dev, batch, seq, seed)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    ce = _token_ce(Model(cfg, kernels=False), params, data)
+    ce32 = _token_ce(Model(cfg32, kernels=False), cast_tree(params, torch.float32), data)
+    return (ce - ce32).abs().mean().item()
+
+
+def phase_mesh_depth_cut(dev, cfg, smi, *, batch=1, seq=4096, steps=2, remat="full",
+                         optimizer="adamw8bit", backend="nccl", init_method=None) -> dict:
+    """MESH_SP_NOTE (d): `cfg` (cut in depth) on the one-process mesh under
+    `rules_for(mesh)`, against a single-device run at the same depth, shape and
+    seed in this process, at twice its bf16 floor (`_loss_floor`)."""
+    quiet = dict(log=lambda *_: None)
+    single = train_run(cfg, device=dev, batch=batch, seq=seq, steps=steps, remat=remat,
+                       optimizer=optimizer, **quiet)
+    log(_mesh_log("(d) single device,", cfg, single, batch, seq, smi))
+    floor = _loss_floor(dev, cfg, batch=batch, seq=seq)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return phase_mesh(dev, cfg, single["losses"], single["launches_per_step"][-1], floor, smi,
+                      batch=batch, seq=seq, steps=steps, backend=backend, init_method=init_method,
+                      sp=True, label="(d)", remat=remat, optimizer=optimizer)
 
 
 def _probe_rank(rank: int, world: int, device_type: str, out_dir: str) -> None:
@@ -1830,6 +1895,260 @@ def phase_mesh_ranks(dev, cfg, floor: float, grad_floor: float, smi: str, *, ran
 
 
 
+# MESH_SP_NOTE: the hybrid and ssm families on the one-process NCCL mesh (data 1,
+# model 1) under `rules_for(mesh)`, JAX's dry-run rules, which turn sequence
+# parallelism on: between blocks the activations are split by sequence over
+# "model", each Mamba2 and RWKV6 mix gathers its sequence whole at its entry
+# (the conv and the token shift read the previous rank's rows), and the SSD,
+# the WKV scan and the kernels run on each rank's heads. (c) zamba2-1.2b at full
+# width and depth at phase 7's shape, data and seed, each step's loss within
+# TRAIN_NOTE's bar (2 x the bf16 floor of zamba2's train parity) of phase 7's
+# run, the kernel launches a step equal to that run's (13 / 7 / 88 / 13 / 53).
+# (d) rwkv6-7b at full width and 2 of its 32 layers (its state at full depth
+# with phase 7's int8 moments fits, but a 2-layer step keeps the phase short),
+# int8 moments and remat full as phase 7's run, against a single-device run of
+# the same depth in this process, within twice the bf16 floor of its loss
+# (`_loss_floor`). Every collective is over one rank: no communication is
+# measured.
+MESH_SP = {"zamba2_1p2b": dict(batch=2, seq=4096, steps=3),
+           "rwkv6_7b": dict(layers=2, batch=1, seq=4096, steps=2, remat="full",
+                            optimizer="adamw8bit")}
+# CP_NOTE: phase 9 serves qwen3-14b at full width and depth on the (data 1, model 1)
+# mesh under the rules JAX's dry-run gives a decode shape of global batch 1 on a
+# data axis wider than the batch (`rules_for`): no dp, tp and sp on "model", cp on
+# "data". (On one card the data axis is 1 wide, not wider than the batch, so
+# `rules_for(mesh, shape)` itself would leave cp off; the rules are those of the
+# stand-in CP_STANDIN and are checked equal.) The KV cache is placed per
+# `cache_pspecs(cp=True)`, its length dim on "data"; each decode step runs the
+# decode kernel with its LSE output on the rank's slots and joins the ranks by
+# `lse_combine`. Bars: the last-token logits of the prefill and of every decode
+# step within the distance between the single-device kernel path and the plain
+# bf16 path on the same tokens (each of which lies about one bf16 floor from
+# float32, so that distance is at most 2 x the floor: the float32 path does not
+# fit the card at full depth), the greedy tokens identical, 40 flash launches at
+# the prefill and 40 decode launches a step (one an attention layer).
+CP_SERVE = dict(prompt=1024, steps=16)
+CP_STANDIN = {"data": 2, "model": 1}
+# SPLIT_NOTE: phase 10 holds the decode kernel's LSE output and the combine of a
+# split cache: at qwen3-14b's decode shape (dh 128) and h2o-danube's (dh 80), the
+# output with LSE equal bit for bit to the output without it, the output to its
+# plain version at ATTN_BAR_NOTE's bars, and the LSE to the plain float32 LSE
+# within LSE_TOL; then the cache cut into 2 and 4 contiguous parts, each part's
+# (out, lse) from the kernel (a part with no valid slot gives 0 and NEG_INF
+# without a launch, as `models/attention.py` does), joined by `lse_combine`, held
+# to the whole cache's kernel output and to the plain version at ATTN_BAR_NOTE's
+# bars. A second n_valid under a quarter of the cache leaves parts empty at 2
+# parts as at 4.
+# LSE_TOL: a row's LSE is the max scaled score plus log of the sum of exponentials
+# (~3 + log 1100 ~ 10 at these shapes). The kernel's scores come from the same
+# bf16 q and k as the plain version's, summed in float32 in another order (~1e-6
+# relative at dh 128), and it adds exponentials in another order with exp2f (a
+# few ulps): ~1e-5 absolute; the bar leaves ten times that.
+LSE_TOL = 1e-4
+SPLIT_CASES = ((4, 8, 5, 2048, 128, (1100, 500)), (4, 8, 4, 4096, 80, (4096, 1000)))
+SPLIT_PARTS = (2, 4)
+
+
+def _greedy(model, params, toks, steps: int, max_len: int, cp: bool = False, forced=None):
+    """Prefill `toks` (B, S), then `steps` decode steps, each fed its own greedy token
+    (or the token of `forced`, (B, steps)): (logits (steps + 1, B, V), tokens (B,
+    steps), cache, kernel launches of the prefill, of the decode steps)."""
+    build.reset_launches()
+    logits, cache = model.prefill(params, {"tokens": toks}, max_len, cp=cp)
+    pre = dict(build.LAUNCHES)
+    outs, fed = [logits], []
+    for i in range(steps):
+        tok = logits.argmax(-1, keepdim=True) if forced is None else forced[:, i:i + 1]
+        fed.append(tok)
+        logits, cache = model.decode_step(params, cache, tok, cp=cp)
+        outs.append(logits)
+    sync()
+    dec = {k: n - pre[k] for k, n in build.LAUNCHES.items()}
+    return torch.stack(outs), torch.cat(fed, 1), cache, pre, dec
+
+
+def _placement_errors(model, cache, cp: bool, mesh) -> list[str]:
+    """The cache leaves not placed as `cache_pspecs(cp)` (sanitized) says."""
+    specs, wrong = model.cache_pspecs(cp), []
+
+    def walk(tree, spec, path):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            p = f"{path}/{k}" if path else str(k)
+            if isinstance(v, (dict, tuple)):
+                walk(v, spec[k], p)
+            elif isinstance(v, torch.Tensor):
+                want = placements(sanitize_pspec(spec[k], tuple(v.shape), mesh), mesh)
+                if tuple(v.placements) != want:
+                    wrong.append(f"{p}: {v.placements} != {want}")
+
+    walk({k: v for k, v in cache.items() if k != "pos"}, specs, "")
+    return wrong
+
+
+def phase_cp_serve(dev, cfg, smi, *, prompt=1024, steps=16, seed=0, backend="nccl",
+                   init_method=None) -> dict:
+    """CP_NOTE: `cfg` served on the one-process mesh with context parallelism, against
+    the single-device kernel path on the same prompt and parameters."""
+    import types
+
+    import torch.distributed as dist
+
+    model = Model(cfg)
+    plain = Model(dataclasses.replace(cfg, attn_impl="dense"), kernels=False)
+    params = model.init(seed, dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                                 (1, prompt))).to(dev)
+    max_len = prompt + steps
+    t0 = time.perf_counter()
+    ref, ref_toks, cache, _, _ = _greedy(model, params, toks, steps, max_len)
+    single_s = time.perf_counter() - t0
+    del cache
+    plain_logits, _, cache, _, _ = _greedy(plain, params, toks, steps, max_len, forced=ref_toks)
+    del cache
+    tol = (plain_logits - ref).abs().max().item()
+    rules = make_rules(dp=(), tp=("model",), sequence_parallel=True, context_parallel=("data",))
+    standin = rules_for(types.SimpleNamespace(shape=CP_STANDIN),
+                        types.SimpleNamespace(kind="decode", global_batch=1))
+    if rules != standin:
+        raise AssertionError(f"cp serve: rules {rules} != rules_for's {standin}")
+    _one_rank_group(backend, init_method)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        with use_mesh(mesh, rules):
+            placed = distribute(params, model.pspecs(), mesh)
+            del params
+            t0 = time.perf_counter()
+            out, out_toks, cache, pre, dec = _greedy(model, placed, toks, steps, max_len, cp=True)
+            mesh_s = time.perf_counter() - t0
+            wrong = _placement_errors(model, cache, True, mesh)
+            kv = cache["layers"]["kv"]["k"]
+            split = [str(p) for p in kv.placements]
+    finally:
+        dist.destroy_process_group()
+    err = (out - ref).abs().max().item()
+    same = torch.equal(out_toks, ref_toks)
+    mem = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    log(f"[cp-serve] {cfg.name} L{cfg.num_layers} d{cfg.d_model} {cfg.dtype} on mesh (data 1, model 1), "
+        f"rules {rules}: prompt {prompt} + {steps} greedy decode steps; logits max |diff| against the "
+        f"single-device kernel path {err:.4e} (tolerance {tol:.4e}: kernels vs plain bf16 on the same "
+        f"tokens), greedy tokens {'identical' if same else 'DIFFER'}; KV cache {tuple(kv.shape)} placed "
+        f"{split}; launches at the prefill {pre}, in {steps} decode steps {dec}; wall {mesh_s:.3f} s "
+        f"against {single_s:.3f} s on one device (host clock); peak {mem:.2f} GiB ({smi})")
+    if not (torch.isfinite(out).all() and err <= tol and same):
+        raise AssertionError(f"cp serve: logits {err} > {tol} or tokens differ")
+    if wrong:
+        raise AssertionError(f"cp serve: cache leaves placed otherwise than cache_pspecs: {wrong}")
+    blocks = attention_blocks(cfg)
+    if (pre["flash_attention"], dec["decode_attention"]) != (blocks, blocks * steps):
+        raise AssertionError(f"cp serve: {pre['flash_attention']} flash launches at the prefill and "
+                             f"{dec['decode_attention']} decode launches in {steps} steps, not "
+                             f"{blocks} and {blocks * steps}")
+    stray = [k for k in dec if dec[k] and k not in used_kernels(cfg)]
+    if stray:
+        raise AssertionError(f"cp serve: kernels off the serve path launched: {stray}")
+    launches = {k: pre[k] + dec[k] for k in pre}
+    return {"err": err, "tol": tol, "launches": launches, "seconds": mesh_s}
+
+
+def _split_combine(qd, kt, vt, nv: int, parts: int):
+    """The decode of qd over the cache (kt, vt) cut into `parts` contiguous parts of
+    its slots, each through the kernel with its LSE (none for an empty part),
+    joined by `lse_combine`: (out in qd's dtype, the parts' valid counts)."""
+    T = kt.shape[2]
+    n = T // parts
+    outs, lses, counts = [], [], []
+    for r in range(parts):
+        nvr = min(max(nv - r * n, 0), n)
+        counts.append(nvr)
+        if nvr == 0:
+            outs.append(torch.zeros(qd.shape, dtype=torch.float32, device=qd.device))
+            lses.append(torch.full(qd.shape[:-1], -1e30, dtype=torch.float32, device=qd.device))
+            continue
+        o, lse = dec_ops.decode_attention(qd, kt[:, :, r * n:(r + 1) * n], vt[:, :, r * n:(r + 1) * n],
+                                          nvr, lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return lse_combine(torch.stack(outs), torch.stack(lses)).to(qd.dtype), counts
+
+
+def phase_split_decode(dev, *, cases=SPLIT_CASES, parts=SPLIT_PARTS, timed=True) -> dict:
+    """SPLIT_NOTE: the decode kernel's LSE output and a split cache's combine, bf16;
+    then the kernel timed with and without its LSE output over ROTATION caches
+    (COLD_L2_NOTE), at each case's first n_valid. Returns the worst errors and
+    the timings."""
+    rng = np.random.default_rng(1)
+    bf = torch.bfloat16
+    worst = {"out": 0.0, "lse": 0.0, "combined": 0.0}
+    empty, timings = 0, []
+
+    def bars(label, out, ref):
+        err, rel = _err(out, ref), _rel(out, ref)
+        log(f"[split] {label}: max_abs_err {err:.3e} (tol {TOL[bf]:g}), rel_err {rel:.3e} "
+            f"(tol {REL_TOL:g})")
+        if not (err < TOL[bf] and rel < REL_TOL):
+            raise AssertionError(f"split: {label}: {err}, {rel}")
+        return err
+
+    for B, Hkv, G, T, dh, nvs in cases:
+        qd = _randn(rng, (B, Hkv, G, dh), bf, dev)
+        kt, vt = (_randn(rng, (B, T, Hkv, dh), bf, dev).transpose(1, 2) for _ in range(2))
+        for nv in nvs:
+            label = f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv}"
+            out, lse = dec_ops.decode_attention(qd, kt, vt, nv, lse=True)
+            if not torch.equal(out, dec_ops.decode_attention(qd, kt, vt, nv)):
+                raise AssertionError(f"split: {label}: the output with LSE differs from the one without")
+            ref = decode_attention_ref(qd, kt, vt, nv)
+            _, lse32 = decode_attention_ref(qd.float(), kt.float(), vt.float(), nv, lse=True)
+            worst["out"] = max(worst["out"], bars(f"{label} kernel with LSE vs plain", out, ref))
+            lse_err = _err(lse, lse32)
+            log(f"[split] {label} LSE vs plain float32: max_abs_err {lse_err:.3e} (tol {LSE_TOL:g}; "
+                f"LSE from {lse32.min().item():.3f} to {lse32.max().item():.3f})")
+            if not lse_err <= LSE_TOL:
+                raise AssertionError(f"split: {label}: LSE {lse_err} > {LSE_TOL}")
+            worst["lse"] = max(worst["lse"], lse_err)
+            for n in parts:
+                comb, counts = _split_combine(qd, kt, vt, nv, n)
+                empty += counts.count(0)
+                what = f"{label} in {n} parts (valid slots {counts})"
+                worst["combined"] = max(worst["combined"], bars(f"{what} vs the whole cache's kernel",
+                                                                comb, out),
+                                        bars(f"{what} vs plain", comb, ref))
+    if not empty:
+        raise AssertionError("split: no part without a valid slot")
+    if timed:
+        for B, Hkv, G, T, dh, nvs in cases:
+            timings.append(_lse_timing(rng, dev, B, Hkv, G, T, dh, nvs[0]))
+    return {**worst, "empty_parts": empty, "timings": timings}
+
+
+def _lse_timing(rng, dev, B, Hkv, G, T, dh, nv) -> dict:
+    """The decode kernel with and without its LSE output, and the plain version with
+    it, at one shape over ROTATION cache pairs (COLD_L2_NOTE)."""
+    bf = torch.bfloat16
+    qd = _randn(rng, (B, Hkv, G, dh), bf, dev)
+    pairs = [tuple(_randn(rng, (B, T, Hkv, dh), bf, dev).transpose(1, 2) for _ in range(2))
+             for _ in range(ROTATION)]
+
+    def cold(lse):
+        turn = itertools.cycle(pairs)
+        return lambda: dec_ops.decode_attention(qd, *next(turn), nv, lse=lse)
+
+    iters = 6 * ROTATION
+    kt, vt = pairs[0]
+    plain = time_ms(lambda: decode_attention_ref(qd, kt, vt, nv, lse=True))
+    with_lse, without = time_ms(cold(True), iters=iters, graph=True), time_ms(cold(False), iters=iters,
+                                                                                graph=True)
+    label = (f"q ({B},{Hkv},{G},{dh}) cache ({B},{T},{Hkv},{dh}) n_valid {nv} bf16, with LSE, cold L2 "
+             f"({ROTATION} K/V pairs rotated)")
+    t = timing(label, with_lse, plain, None,
+               2 * B * Hkv * G * dh * 2 + 2 * B * Hkv * nv * dh * 2 + B * Hkv * G * 4,
+               4 * B * Hkv * G * nv * dh, bf)
+    log(f"[split] decode_attention at {label}: {with_lse:.4f} ms with LSE, {without:.4f} ms without "
+        f"(the same launch but the null pointer), plain with LSE {plain:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {**t, "ms_without_lse": without}
+
 def train_config(arch: str):
     """A training run's config: full width, `layers` deep where TRAIN_RUNS cuts it."""
     cfg = get_config(arch)
@@ -1908,12 +2227,39 @@ def main() -> None:
     mesh = phase_mesh(dev, danube, run7["losses"], run7["launches_per_step"], floors["floor"], smi, **MESH)
     torch.cuda.empty_cache()
     ranks = phase_mesh_ranks(dev, danube, floors["floor"], floors["grad_floor"], smi, **MESH_RANKS)
+    t_mesh = time.perf_counter() - t_mesh
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()  # phases 8 (c), (d), 9 and 10, added with context parallelism
+    split = phase_split_decode(dev)
+    dec = rec["decode_attention"]
+    dec["lse"] = split["timings"]
+    dec["max_abs_err"] = max(dec["max_abs_err"], split["out"], split["combined"])
+    torch.cuda.empty_cache()
+    zamba2 = train_config("zamba2_1p2b")
+    run7 = trains[zamba2.name]
+    mesh_c = phase_mesh(dev, zamba2, run7["losses"], run7["launches_per_step"],
+                        parity["zamba2_1p2b"]["floor"], smi, sp=True, label="(c)",
+                        **MESH_SP["zamba2_1p2b"])
+    torch.cuda.empty_cache()
+    cut = {k: v for k, v in MESH_SP["rwkv6_7b"].items() if k != "layers"}
+    rwkv = dataclasses.replace(get_config("rwkv6_7b"), num_layers=MESH_SP["rwkv6_7b"]["layers"])
+    log(f"[mesh] (d) {rwkv.name} at full width and {rwkv.num_layers} of its "
+        f"{get_config('rwkv6_7b').num_layers} layers (cut: MESH_SP_NOTE)")
+    mesh_d = phase_mesh_depth_cut(dev, rwkv, smi, **cut)
+    torch.cuda.empty_cache()
+    cp = phase_cp_serve(dev, full, smi, seed=args.seed, **CP_SERVE)
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter() - t_new
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
-            **{f"mesh {danube.name} (1x{len(ranks)}) rank {i}": r["launches"] for i, r in enumerate(ranks)}}
-    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s "
-        f"and the mesh phase {time.perf_counter() - t_mesh:.1f}s")
+            **{f"mesh {danube.name} (1x{len(ranks)}) rank {i}": r["launches"] for i, r in enumerate(ranks)},
+            f"mesh {zamba2.name} (1x1, sequence parallel)": mesh_c["launches"],
+            f"mesh {rwkv.name} L{rwkv.num_layers} (1x1, sequence parallel)": mesh_d["launches"],
+            f"cp serve {full.name} (1x1)": cp["launches"]}
+    log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
+        f"the mesh phase's (a) and (b) {t_mesh:.1f}s, and its (c) and (d), the cp serve and the "
+        f"split phases {t_new:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
     # over the serve runs, the training runs and the mesh runs (each rank's)
     sources = {**KERNELS, **TRAIN_KERNELS}
@@ -1924,7 +2270,8 @@ def main() -> None:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
-         **({"extra_shapes": r["extra"]} if "extra" in r else {})}
+         **({"extra_shapes": r["extra"]} if "extra" in r else {}),
+         **({"lse_shapes": r["lse"]} if "lse" in r else {})}
         for name, r in rec.items()
     ]
     print(json.dumps({"kernels": kernels}))

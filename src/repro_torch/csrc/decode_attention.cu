@@ -48,7 +48,10 @@
 //   the 2e-5 bar); slots at or past n_valid are never read.
 //
 // Combine, in the same launch: CTA r of a cluster writes the output columns
-// of its slice r of dh. Each CTA stages its (acc unnormalised, m, l) of the G
+// of its slice r of dh. With an lse pointer (else null), CTA 0 also writes
+// each row's log-sum-exp of the scaled scores, ln 2 (M + log2 L) from the
+// common max M (log2 units) and sum L it combines: the partial output of a
+// part of a cache, which ranks holding the other parts join. Each CTA stages its (acc unnormalised, m, l) of the G
 // rows in its own shared memory, then all its threads push (m, l) to every
 // CTA and each slice of acc to the CTA that owns it, in 16-byte stores to
 // distributed shared memory; one cluster barrier makes
@@ -74,6 +77,7 @@ constexpr int BOX_D = SW128_COLS;  // dh columns of a TMA box
 constexpr int ROW = BOX_D * 2;   // bytes of a tile row in shared memory
 constexpr int RING_BYTES = 96 * 1024;  // ring of a CTA: two CTAs share an SM's 228 KB
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // The dh columns that CTA d of a cluster of n combines and writes: [d cols,
 // (d + 1) cols) within DH, cols = ceil(DH / n) rounded up to 4 floats, so
@@ -129,9 +133,11 @@ __device__ __forceinline__ void cluster_wait() {
 // columns from what it received: out[g][c] = sum_r w_r acc_r[g][c] /
 // max(sum_r w_r l_r, 1e-30), w_r = 2^(m_r - M). A CTA's shared memory may be
 // written only once it has started: each CTA arrives (relaxed) at its start
-// and waits here, long after.
+// and waits here, long after. CTA 0 also writes lse[g] = ln 2 (M + log2
+// sum_r w_r l_r) where `lse` is not null.
 template <typename T, int DH>
-__device__ __forceinline__ void push_combine(const float* part, float* recv, T* __restrict__ out, int G) {
+__device__ __forceinline__ void push_combine(const float* part, float* recv, T* __restrict__ out,
+                                             float* __restrict__ lse, int G) {
   using R = Recv<DH>;
   cg::cluster_group cluster = cg::this_cluster();
   const int n = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -163,6 +169,14 @@ __device__ __forceinline__ void push_combine(const float* part, float* recv, T* 
       L += w * recv[R::L + r * MAXG + g];
     }
     out[g * DH + c0 + j] = from_f32<T>(a / fmaxf(L, 1e-30f));
+  }
+  if (lse != nullptr && rank == 0) {
+    for (int g = t; g < G; g += THREADS) {
+      float M = NEG_INF, L = 0.f;
+      for (int r = 0; r < n; ++r) M = fmaxf(M, recv[R::M + r * MAXG + g]);
+      for (int r = 0; r < n; ++r) L += exp2f(recv[R::M + r * MAXG + g] - M) * recv[R::L + r * MAXG + g];
+      lse[g] = (M + log2f(fmaxf(L, 1e-30f))) * LN2;
+    }
   }
 }
 
@@ -199,8 +213,9 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], const uint32_t (&qa)[DH
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-                 const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int Hkv,
-                 int G, int n_valid, int tiles_per_cta, int stages, float scale_log2) {
+                 const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int Hkv, int G, int n_valid, int tiles_per_cta, int stages,
+                 float scale_log2) {
   static_assert(DH % 16 == 0, "Q.K^T takes dh in k16 steps");
   constexpr int DP = sw128_tile_cols(DH), KV_BYTES = TILE * DP * 2, STAGE = tc_stage_bytes<DH>();
   extern __shared__ uint8_t smem_raw[];
@@ -326,14 +341,15 @@ decode_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     }
   }
   __syncthreads();
-  push_combine<__nv_bfloat16, DH>(part, recv, o + head * G * DH, G);
+  push_combine<__nv_bfloat16, DH>(part, recv, o + head * G * DH, lse ? lse + head * G : nullptr, G);
 }
 
 // ------------------------------------------------------------ fp32-tile path
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 decode_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   T* __restrict__ o, int Hkv, int G, long long ksb, long long ksh, long long kst,
+                   T* __restrict__ o, float* __restrict__ lse, int Hkv, int G, long long ksb,
+                   long long ksh, long long kst,
                    long long vsb, long long vsh, long long vst, int n_valid, int tiles_per_cta,
                    float scale) {
   extern __shared__ float smem[];
@@ -415,7 +431,7 @@ decode_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   __syncthreads();
   for (int g = t; g < G; g += THREADS) ms[g] *= LOG2E;  // the combine works in log2 units
   __syncthreads();
-  push_combine<T, DH>(accs, recv, o + head * G * DH, G);
+  push_combine<T, DH>(accs, recv, o + head * G * DH, lse ? lse + head * G : nullptr, G);
 }
 
 // ------------------------------------------------------------ launch
@@ -451,7 +467,7 @@ static int launch_cluster(void (*kern)(KArgs...), int n_split, int Hkv, int B, i
 }
 
 template <int DH>
-static int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Hkv, int G,
+static int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hkv, int G,
                      const long long* st, int n_valid, int n_split, int tiles_per_cta, int stages,
                      int smem, float scale, cudaStream_t stream) {
   if (stages < 1 || stages * tc_stage_bytes<DH>() > RING_BYTES || smem != tc_smem_bytes<DH>(stages))
@@ -461,17 +477,17 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o, int B
       !make_map(&vm, v, DH, Hkv, n_valid, B, st[3], st[4], st[5], TILE))
     return (int)cudaErrorInvalidValue;
   return launch_cluster(decode_tc_kernel<DH>, n_split, Hkv, B, smem, stream, km, vm,
-                        (const __nv_bfloat16*)q, (__nv_bfloat16*)o, Hkv, G, n_valid,
+                        (const __nv_bfloat16*)q, (__nv_bfloat16*)o, lse, Hkv, G, n_valid,
                         tiles_per_cta, stages, scale * LOG2E);
 }
 
 template <typename T, int DH>
-static int launch_tile(const void* q, const void* k, const void* v, void* o, int B, int Hkv, int G,
+static int launch_tile(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hkv, int G,
                        const long long* st, int n_valid, int n_split, int tiles_per_cta,
                        int smem, float scale, cudaStream_t stream) {
   if (smem != tile_smem_bytes<DH>(G)) return (int)cudaErrorInvalidValue;
   return launch_cluster(decode_tile_kernel<T, DH>, n_split, Hkv, B, smem, stream, (const T*)q,
-                        (const T*)k, (const T*)v, (T*)o, Hkv, G, st[0], st[1], st[2], st[3],
+                        (const T*)k, (const T*)v, (T*)o, lse, Hkv, G, st[0], st[1], st[2], st[3],
                         st[4], st[5], n_valid, tiles_per_cta, scale);
 }
 
@@ -479,7 +495,7 @@ static int launch_tile(const void* q, const void* k, const void* v, void* o, int
 // slot_extent) comes from `launch_plan` in Python; anything but the plan this
 // file would make is refused, so the two cannot drift apart silently.
 extern "C" int launch_decode_attention(const void* q, const void* k, const void* v, void* o,
-                                       int B, int Hkv, int G, int T_len, int dh, long long ksb,
+                                       float* lse, int B, int Hkv, int G, int T_len, int dh, long long ksb,
                                        long long ksh, long long kst, long long vsb,
                                        long long vsh, long long vst, int n_valid, int n_split,
                                        int tiles_per_cta, int stages, int smem, int box_d,
@@ -498,19 +514,19 @@ extern "C" int launch_decode_attention(const void* q, const void* k, const void*
       (!tc_path && (box_slots != 0 || stages != 0)))
     return (int)cudaErrorInvalidValue;
   if (tc_path && dh == 64)
-    return launch_tc<64>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
+    return launch_tc<64>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
   if (tc_path && dh == 80)
-    return launch_tc<80>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
+    return launch_tc<80>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
   if (tc_path)
-    return launch_tc<128>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
+    return launch_tc<128>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, stages, smem, scale, s);
   if (dtype == kBF16 && dh == 32)
-    return launch_tile<__nv_bfloat16, 32>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
+    return launch_tile<__nv_bfloat16, 32>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
   if (dtype != kF32) return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch_tile<float, 32>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
-    case 64: return launch_tile<float, 64>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
-    case 80: return launch_tile<float, 80>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
-    case 128: return launch_tile<float, 128>(q, k, v, o, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
+    case 32: return launch_tile<float, 32>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
+    case 64: return launch_tile<float, 64>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
+    case 80: return launch_tile<float, 80>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
+    case 128: return launch_tile<float, 128>(q, k, v, o, lse, B, Hkv, G, st, n_valid, n_split, tiles_per_cta, smem, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

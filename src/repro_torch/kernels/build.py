@@ -62,10 +62,10 @@ SIGNATURES = {
     # (scratch), dscale, rows, d, eps, dtype, the launch plan (elements per
     # load, lanes per row, rows per block, loads per thread, blocks), stream
     "launch_rmsnorm_bwd": [_P] * 8 + [_L, _I, _F, _I] + [_I] * 5 + [_P],
-    # q, k, v, o, B, Hkv, G, T, dh, k strides (b, h, t), v strides, n_valid,
-    # the launch plan (n_split, tiles per CTA, ring stages, smem bytes, TMA box
-    # dh columns and slots, slot extent), scale, dtype, stream
-    "launch_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    # q, k, v, o, lse (null: none), B, Hkv, G, T, dh, k strides (b, h, t), v
+    # strides, n_valid, the launch plan (n_split, tiles per CTA, ring stages,
+    # smem bytes, TMA box dh columns and slots, slot extent), scale, dtype, stream
+    "launch_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 6 + [_I] * 8 + [_F, _I, _P],
     # dtype, dh, n_split, smem bytes -> clusters of the decode kernel resident
     # at once (a negative cudaError_t on failure); launches nothing, no stream

@@ -18,6 +18,11 @@ the card at once are counted as further waves; on the card, how many fit is
 asked of the CUDA runtime (`cudaOccupancyMaxActiveClusters`), since clusters
 must sit within one GPC and so pack less densely than single CTAs.
 
+With `lse` the combine also writes each row's log-sum-exp, m + log(l) from
+the running max and sum it already holds: the partial output of a part of a
+cache, which ranks that hold the other parts join (`lse_combine`). Without it
+the launch is the same but for a null pointer.
+
 bf16 at dh 64, 80 and 128 takes the tensor-core kernel, which loads K and V
 with TMA through 4-D maps over (dh, Hkv, slots, B) whose slot extent is
 n_valid; dh 80 is read as two boxes, the second zero-filled past column 80,
@@ -164,8 +169,11 @@ def launch_args(q, k, v, n_valid: int, *, scale: float | None, sms: int = 132,
             plan.tiles_per_cta, plan.stages, plan.smem, *plan.box, plan.slot_extent, scale)
 
 
-def flash_decode(q, k, v, n_valid: int, *, scale: float | None = None) -> torch.Tensor:
-    """One-token attention of CUDA q over the cache (k, v) -> (B, Hkv, G, dh)."""
+def flash_decode(q, k, v, n_valid: int, *, scale: float | None = None, lse: bool = False):
+    """One-token attention of CUDA q over the cache (k, v) -> (B, Hkv, G, dh); with
+    `lse`, also (B, Hkv, G) float32, the log-sum-exp of the scaled scores, which
+    the cluster's combine writes beside the output (the same launch, the same
+    plan)."""
     if not all(t.is_cuda and t.device == q.device for t in (k, v)) or not q.is_cuda:
         raise ValueError("decode_attention: q, k and v must be on one CUDA device")
     if not q.dtype == k.dtype == v.dtype:
@@ -176,13 +184,15 @@ def flash_decode(q, k, v, n_valid: int, *, scale: float | None = None) -> torch.
     args = launch_args(q, k, v, n_valid, scale=scale, sms=sms,
                        resident=_card_resident(dev, code, q.shape[-1]))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_out = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if lse else None
     lib = build.library()
     with torch.cuda.device(q.device):
         err = lib.launch_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                          out.data_ptr(), *args, code, build.stream_ptr(q.device))
+                                          out.data_ptr(), lse_out.data_ptr() if lse else 0,
+                                          *args, code, build.stream_ptr(q.device))
     build.check(lib, err, "decode_attention")
     build.LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 @functools.cache

@@ -63,8 +63,9 @@ def rules_for(mesh, shape=None, *, sequence_parallel: bool = True,
     Batch shards over ("pod", "data"); weights over "model". For decode shapes
     (anything with `kind` and `global_batch`, JAX's ShapeSpec) whose global
     batch is smaller than the dp axes, the data axis is repurposed for context
-    parallelism over the KV/seq dim: rule resolution only, as serving on a mesh
-    waits for ROADMAP A7.
+    parallelism over the KV/seq dim: `Model.prefill` and `decode_step` with
+    `cp` place their caches by these rules (`Model.cache_pspecs`), and decode
+    joins the ranks' partial outputs over the split length.
     """
     sizes = mesh_sizes(mesh)
     dp = tuple(a for a in ("pod", "data") if a in sizes)

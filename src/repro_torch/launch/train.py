@@ -14,7 +14,7 @@ full-width model with the same code (`chip_smoke.py` does). `--mesh DxM`
 `torchrun`'s processes, gloo on the CPU and NCCL on CUDA, with JAX's rules:
 batch over the data axes, weights over "model", ZeRO-1 over the data axes.
 `--auto-plan`, `--chips`, `--hardware` wait for the planner's port (ROADMAP
-A7): they are accepted and refused.
+A7b): they are accepted and refused.
 """
 
 from __future__ import annotations
@@ -36,25 +36,27 @@ from repro_torch.parallel.axes import make_rules
 from repro_torch.train.trainer import Trainer
 
 
-def mesh_and_rules(mesh, device: torch.device):
+def mesh_and_rules(mesh, device: torch.device, rules=None):
     """(DeviceMesh, rules) of `mesh`: a DeviceMesh, or its `--mesh` text ("2x2"),
-    built over the default process group on `device`'s type; JAX's launcher rules
-    (dp the axes other than "model", tp "model")."""
+    built over the default process group on `device`'s type; `rules`, or JAX's
+    launcher rules (dp the axes other than "model", tp "model")."""
     if isinstance(mesh, str):
         mesh = make_mesh(*parse_mesh(mesh), device_type=device.type)
     axes = tuple(mesh.mesh_dim_names)
-    return mesh, make_rules(dp=tuple(a for a in axes if a != "model"), tp=("model",))
+    return mesh, rules or make_rules(dp=tuple(a for a in axes if a != "model"), tp=("model",))
 
 
 def run(cfg: ModelConfig, *, device: str | torch.device | None = None, batch: int = 8,
         seq: int = 128, steps: int = 50, remat: str = "selective", optimizer: str = "adamw",
         microbatches: int = 1, grad_compress: bool = False, seed: int = 0,
         checkpoint_dir: str = "", checkpoint_every: int = 0, resume: bool = False,
-        mesh=None, log=print) -> dict:
+        mesh=None, rules=None, log=print) -> dict:
     """Train `steps` steps of `SyntheticLM(vocab, seq, batch)` from the port's seeded init.
 
     `mesh` (a DeviceMesh or `--mesh` text; `mesh_and_rules`) trains on a mesh of
-    the default process group's ranks, the batch over its data axes.
+    the default process group's ranks, the batch over its data axes, under
+    `rules` (e.g. `launch.mesh.rules_for(mesh)`, sequence parallelism on) or
+    JAX's launcher rules.
     Returns each step's metrics (`history`: loss, ce, accuracy, grad_norm, lr,
     step_time_s, ...), the step times and losses, tokens a step, the peak
     device memory where the device is CUDA, and each step's kernel launches
@@ -63,7 +65,7 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, batch: in
     dev = resolve_device(device)
     rules = None
     if mesh is not None:
-        mesh, rules = mesh_and_rules(mesh, dev)
+        mesh, rules = mesh_and_rules(mesh, dev, rules)
         if dev.type == "cuda":  # the mesh set this rank's card
             dev = torch.device("cuda", torch.cuda.current_device())
     model = Model(cfg)
@@ -122,12 +124,12 @@ def main():
     ap.add_argument("--mesh", default="",
                     help="DxM or PxDxM: train on a mesh of torchrun's processes")
     ap.add_argument("--auto-plan", action="store_true",
-                    help="not yet: the analytical planner waits for ROADMAP A7")
-    ap.add_argument("--chips", type=int, default=256, help="with --auto-plan (ROADMAP A7)")
-    ap.add_argument("--hardware", default="tpu-v5e", help="with --auto-plan (ROADMAP A7)")
+                    help="not yet: the analytical planner waits for ROADMAP A7b")
+    ap.add_argument("--chips", type=int, default=256, help="with --auto-plan (ROADMAP A7b)")
+    ap.add_argument("--hardware", default="tpu-v5e", help="with --auto-plan (ROADMAP A7b)")
     args = ap.parse_args()
     if args.auto_plan:
-        raise SystemExit("--auto-plan: the analytical planner is not ported yet (ROADMAP A7)")
+        raise SystemExit("--auto-plan: the analytical planner is not ported yet (ROADMAP A7b)")
 
     cfg = get_config(args.arch)
     if args.reduced:

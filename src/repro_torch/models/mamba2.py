@@ -24,10 +24,13 @@ attention caches are, and makes no host synchronisation.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.axes import axes_size, on_local, regrid, shard, write
 
 
 def dims(cfg: ModelConfig):
@@ -62,32 +65,49 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return d.masked_fill(~mask, float("-inf"))
 
 
-def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
-    """Full-sequence SSD. x: (B, S, D) -> (y (B, S, D), {"ssd" (B, H, N, P) fp32,
-    "conv" (B, conv_dim, W - 1)})."""
+def _heads_split(cfg: ModelConfig) -> str | None:
+    """"tp" where the heads shard over tp on a mesh: a rank's heads must be whole
+    groups, or all read the one group; None (replicated) elsewhere."""
     s = cfg.ssm
-    d_inner, H, conv_dim = dims(cfg)
+    tp = axes_size("tp")
+    H = dims(cfg)[1]
+    ok = tp > 1 and H % tp == 0 and (s.n_groups == 1 or s.n_groups % tp == 0)
+    return "tp" if ok else None
+
+
+def _conv(cfg: ModelConfig, zxbcdt: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor):
+    """The in-projection split and the depthwise causal conv over (x, B, C), a sum of W
+    shifts in the compute dtype: (z, xh (B, S, H, P), B, C (B, S, G, N), dt raw
+    (B, S, H), the decode-ready conv state (B, conv_dim, W - 1): the last W - 1
+    rows of the zero-left-padded pre-conv input)."""
+    s = cfg.ssm
+    d_inner, H, _ = dims(cfg)
     G, N, P, W = s.n_groups, s.d_state, s.head_dim, s.conv_width
-    B_, S, _ = x.shape
+    B_, S, _ = zxbcdt.shape
+    dt_c = zxbcdt.dtype
+    z, xc, Bm, Cm, dtr = _split_proj(cfg, zxbcdt)
+    conv_in = F.pad(torch.cat([xc, Bm, Cm], dim=-1), (0, 0, W - 1, 0))  # (B, S + W - 1, conv_dim)
+    cw = cw.to(dt_c)
+    conv = sum(conv_in[:, i:i + S] * cw[:, i] for i in range(W))
+    xbc = F.silu(conv + cb.to(dt_c))
+    conv_state = conv_in[:, S:].transpose(1, 2).contiguous()
+    xh, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+    return (z, xh.reshape(B_, S, H, P), Bm.reshape(B_, S, G, N), Cm.reshape(B_, S, G, N), dtr,
+            conv_state)
+
+
+def _ssd(chunk: int, xh, dtr, Bm, Cm, a_log, d_skip, dt_bias):
+    """The chunked SSD over the heads given (a rank's own on a mesh): xh (B, S, H, P),
+    dt raw (B, S, H), B and C (B, S, G, N) of those heads' groups, the heads' decay,
+    skip and dt bias -> (y (B, S, H * P), final state (B, H, N, P) float32)."""
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     Q = min(chunk, S)
     pad = (Q - S % Q) % Q
-    dt_c = x.dtype
+    dt_c = xh.dtype
     hpg = H // G
-
-    z, xc, Bm, Cm, dtr = _split_proj(cfg, x @ p["w_in"].to(dt_c))
-    # depthwise causal conv over (x, B, C): a sum of W shifts, in the compute dtype
-    conv_in = F.pad(torch.cat([xc, Bm, Cm], dim=-1), (0, 0, W - 1, 0))  # (B, S + W - 1, conv_dim)
-    cw = p["conv_w"].to(dt_c)
-    conv = sum(conv_in[:, i:i + S] * cw[:, i] for i in range(W))
-    xbc = F.silu(conv + p["conv_b"].to(dt_c))
-    conv_state = conv_in[:, S:].transpose(1, 2).contiguous()  # the last W - 1 pre-conv rows
-
-    xh, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
-    xh = xh.reshape(B_, S, H, P)
-    Bm = Bm.reshape(B_, S, G, N)
-    Cm = Cm.reshape(B_, S, G, N)
-    dt = F.softplus(dtr.float() + p["dt_bias"])  # (B, S, H)
-    A = -torch.exp(p["a_log"])  # (H,)
+    dt = F.softplus(dtr.float() + dt_bias)  # (B, S, H)
+    A = -torch.exp(a_log)  # (H,)
     if pad:  # x = 0 (no input) and dt = 0 (decay 1)
         xh, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xh, Bm, Cm))
         dt = F.pad(dt, (0, 0, 0, pad))
@@ -112,7 +132,7 @@ def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
 
     # inter-chunk scan: the state entering each chunk
     chunk_decay = torch.exp(cum[:, :, -1])  # (B, nc, H)
-    state = torch.zeros(B_, H, N, P, dtype=torch.float32, device=x.device)
+    state = torch.zeros(B_, H, N, P, dtype=torch.float32, device=xh.device)
     prev = []
     for c in range(nc):
         prev.append(state)
@@ -122,41 +142,103 @@ def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
     Ch = Cr.repeat_interleave(hpg, dim=3)
     y_inter = torch.einsum("bcihn,bchnp,bcih->bcihp", Ch.float(), prev_states,
                            torch.exp(cum)).to(dt_c)
-    y = y_intra + y_inter + xh * p["d_skip"].to(dt_c)[:, None]
-    y = y.reshape(B_, nc * Q, d_inner)[:, :S]  # drop the padding
-    y = _gated_norm(p["norm"], y, z)
-    return y @ p["w_out"].to(dt_c), {"ssd": state, "conv": conv_state}
+    y = y_intra + y_inter + xh * d_skip.to(dt_c)[:, None]
+    return y.reshape(B_, nc * Q, H * P)[:, :S], state  # drop the padding
+
+
+def _whole_cols(zxbcdt, p):
+    """The in-projection's output and the conv's weights with their columns whole on
+    a mesh: the concatenations [z | x | B | C | dt] and [x | B | C] that JAX shards
+    over tp do not line up with heads, and the split needs every column. The batch
+    stays on dp, and the sequence is whole (the conv and the scan run along it)."""
+    return (shard(zxbcdt, "dp", None, None), shard(p["conv_w"], None, None),
+            shard(p["conv_b"], None))
+
+
+def _per_head(cfg, h, xh, dtr, z, Bm, Cm, p):
+    """xh, dt, z and the per-head parameters split by head over `h` ("tp" or None),
+    B and C by group where the groups split with the heads (a local slice of the
+    whole value, no message)."""
+    g = h if cfg.ssm.n_groups > 1 else None
+    lead = (None,) * (xh.dim() - 3)  # the sequence dim, where there is one
+    return (shard(xh, "dp", *lead, h, None), shard(dtr, "dp", *lead, h), shard(z, "dp", *lead, h),
+            shard(Bm, "dp", *lead, g, None), shard(Cm, "dp", *lead, g, None),
+            *(shard(p[k], h) for k in ("a_log", "d_skip", "dt_bias")), shard(p["norm"], h))
+
+
+def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
+    """Full-sequence SSD. x: (B, S, D) -> (y (B, S, D), {"ssd" (B, H, N, P) fp32,
+    "conv" (B, conv_dim, W - 1)}).
+
+    On a mesh (JAX's shard sites: xh on ("dp", None, "tp", None), the output on
+    ("dp", "sp", None)) the sequence is gathered whole (sequence parallelism
+    splits it between blocks, and the conv needs the previous rank's last W - 1
+    rows), the conv runs on every column, and the SSD on each rank's heads;
+    the gated norm's mean over d_inner then sums across them."""
+    dt_c = x.dtype
+    x = shard(x, "dp", None, None)
+    zxbcdt, cw, cb = _whole_cols(x @ p["w_in"].to(dt_c), p)
+    outs = on_local(functools.partial(_conv, cfg), zxbcdt, cw, cb,
+                    out=[getattr(zxbcdt, "placements", None)] * 6)
+    z, xh, Bm, Cm, dtr, conv_state = outs
+    h = _heads_split(cfg)
+    xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm = _per_head(cfg, h, xh, dtr, z, Bm, Cm, p)
+    pl = getattr(xh, "placements", None)  # (B, S, H, P): y (B, S, H * P), the state (B, H, N, P)
+    y, state = on_local(functools.partial(_ssd, chunk), xh, dtr, Bm, Cm, a_log, d_skip, dt_bias,
+                        out=[pl, regrid(pl, {0: 0, 2: 1})])
+    y = _gated_norm(norm, y, z)
+    return shard(y @ p["w_out"].to(dt_c), "dp", "sp", None), {"ssd": state, "conv": conv_state}
+
+
+def _decode_conv(cfg, zxbcdt, conv, cw, cb):
+    """One token through the split and the conv, its window the conv state and the
+    token: (z, xh (B, H, P), B, C (B, G, N), dt raw (B, H), the next conv state)."""
+    s = cfg.ssm
+    d_inner, H, _ = dims(cfg)
+    B_ = zxbcdt.shape[0]
+    dt_c = zxbcdt.dtype
+    z, xc, Bm, Cm, dtr = _split_proj(cfg, zxbcdt)
+    window = torch.cat([conv, torch.cat([xc, Bm, Cm], dim=-1)[:, :, None]], dim=-1)  # (B, conv_dim, W)
+    xbc = F.silu(torch.einsum("bcw,cw->bc", window, cw.to(dt_c)) + cb.to(dt_c))
+    gn = s.n_groups * s.d_state
+    xh, Bm, Cm = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    return (z, xh.reshape(B_, H, s.head_dim), Bm.reshape(B_, s.n_groups, s.d_state),
+            Cm.reshape(B_, s.n_groups, s.d_state), dtr, window[:, :, 1:])
+
+
+def _ssd_step(xh, dtr, Bm, Cm, ssd, a_log, d_skip, dt_bias):
+    """One recurrent step of the heads given: `ssd` (B, H, N, P) advanced in place;
+    returns y (B, H * P)."""
+    B_, H, P = xh.shape
+    hpg = H // Bm.shape[1]
+    dt_c = xh.dtype
+    Bm = Bm.repeat_interleave(hpg, dim=1)  # (B, H, N)
+    Cm = Cm.repeat_interleave(hpg, dim=1)
+    dt = F.softplus(dtr.float() + dt_bias)  # (B, H)
+    da = torch.exp(dt * -torch.exp(a_log))
+    new = da[..., None, None] * ssd + torch.einsum("bhn,bh,bhp->bhnp", Bm.float(), dt, xh.float())
+    ssd.copy_(new)
+    y = torch.einsum("bhn,bhnp->bhp", Cm.float(), new).to(dt_c)
+    return (y + xh * d_skip.to(dt_c)[:, None]).reshape(B_, H * P)
 
 
 def mamba2_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> torch.Tensor:
-    """One-token recurrent step. x: (B, 1, D) -> y (B, 1, D); `state` updated in place."""
-    s = cfg.ssm
-    d_inner, H, _ = dims(cfg)
-    G, N, P = s.n_groups, s.d_state, s.head_dim
-    B_ = x.shape[0]
+    """One-token recurrent step. x: (B, 1, D) -> y (B, 1, D); `state` updated in place.
+    On a mesh the state is placed per `mamba2_state_specs`: the conv runs on every
+    column (its state gathered, then written back to each rank's shard) and the
+    step on each rank's heads, on its own shard of the SSD state."""
     dt_c = x.dtype
-    hpg = H // G
-
-    z, xc, Bm, Cm, dtr = _split_proj(cfg, x[:, 0] @ p["w_in"].to(dt_c))
-    xbc = torch.cat([xc, Bm, Cm], dim=-1)  # (B, conv_dim)
-    window = torch.cat([state["conv"], xbc[:, :, None]], dim=-1)  # (B, conv_dim, W)
-    conv = torch.einsum("bcw,cw->bc", window, p["conv_w"].to(dt_c)) + p["conv_b"].to(dt_c)
-    state["conv"].copy_(window[:, :, 1:])
-    xbc = F.silu(conv)
-
-    xh, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
-    xh = xh.reshape(B_, H, P)
-    Bm = Bm.reshape(B_, G, N).repeat_interleave(hpg, dim=1)  # (B, H, N)
-    Cm = Cm.reshape(B_, G, N).repeat_interleave(hpg, dim=1)
-    dt = F.softplus(dtr.float() + p["dt_bias"])  # (B, H)
-    da = torch.exp(dt * -torch.exp(p["a_log"]))
-
-    ssd = da[..., None, None] * state["ssd"] + torch.einsum(
-        "bhn,bh,bhp->bhnp", Bm.float(), dt, xh.float())
-    state["ssd"].copy_(ssd)
-    y = torch.einsum("bhn,bhnp->bhp", Cm.float(), ssd).to(dt_c)
-    y = y + xh * p["d_skip"].to(dt_c)[:, None]
-    y = _gated_norm(p["norm"], y.reshape(B_, d_inner), z)
+    zxbcdt, cw, cb = _whole_cols(x[:, 0] @ p["w_in"].to(dt_c), p)
+    conv = shard(state["conv"], "dp", None, None)
+    z, xh, Bm, Cm, dtr, new_conv = on_local(
+        functools.partial(_decode_conv, cfg), zxbcdt, conv, cw, cb,
+        out=[getattr(zxbcdt, "placements", None)] * 6)
+    write(state["conv"], new_conv)
+    h = _heads_split(cfg)
+    xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm = _per_head(cfg, h, xh, dtr, z, Bm, Cm, p)
+    y = on_local(_ssd_step, xh, dtr, Bm, Cm, state["ssd"], a_log, d_skip, dt_bias,
+                 out=[getattr(z, "placements", None)])
+    y = _gated_norm(norm, y, z)
     return (y @ p["w_out"].to(dt_c))[:, None, :]
 
 
@@ -168,3 +250,8 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, device) -> dict:
         "conv": torch.zeros(batch, conv_dim, s.conv_width - 1, dtype=cfg.compute_dtype,
                             device=device),
     }
+
+
+def mamba2_state_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of the decode state, JAX's `mamba2_state_specs`."""
+    return {"ssd": ("dp", "tp", None, None), "conv": ("dp", "tp", None)}

@@ -11,6 +11,13 @@ steps, w = 1 and k = v = 0.
 
 The decode functions update the state dicts they are given IN PLACE, as the
 attention caches are.
+
+On a mesh (JAX's shard sites: r, k and v on ("dp", None, "tp", None), each
+mix's output on ("dp", "sp", None)) each mix gathers its sequence whole at its
+entry, so the token shift reads the previous rank's last row under sequence
+parallelism; the chunk scan, the bonus `u` and the group norm run on each
+rank's heads (`u` and `ln_x` on their own shards), and the output projection's
+partial sums meet in the closing `shard`.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import group_norm_heads
+from repro_torch.parallel.axes import on_local, on_shards, regrid, shard, write
 
 
 def heads(cfg: ModelConfig):
@@ -88,41 +96,80 @@ def _wkv_chunk_scan(r, k, v, w, u, chunk: int, init_state=None):
     return torch.cat(ys, dim=1)[:, :S0], state
 
 
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """The token shift along a whole sequence (B, S, D): row t - 1 at t, zeros at 0.
+    On a mesh the sequence is gathered first (sequence parallelism splits it
+    between blocks), so row 0 of a rank's block sees the previous rank's last."""
+    x = shard(x, "dp", None, None)
+    return x, on_shards(lambda t: F.pad(t, (0, 0, 1, 0))[:, :t.shape[1]], x)
+
+
+def _mixes(p: dict, x: torch.Tensor, xprev: torch.Tensor):
+    """`_ddlerp` on each rank's rows (its weights replicated)."""
+    keys = ("maa_x", "maa", "mix_w1", "mix_w2")
+    return on_shards(lambda a, b, *w: _ddlerp(dict(zip(keys, w)), a, b), x, xprev,
+                     params=tuple(p[k] for k in keys), n_out=5)
+
+
+def _heads(t: torch.Tensor, H: int, dh: int) -> torch.Tensor:
+    """(..., D) as (..., H, dh), the heads on tp (JAX's `shard(r, "dp", None, "tp", None)`)."""
+    t = t.reshape(*t.shape[:-1], H, dh)
+    return shard(t, "dp", *(None,) * (t.dim() - 3), "tp", None)
+
+
+def _group_norm(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """`group_norm_heads` on each rank's heads, ln_x's gains on their own shards."""
+    return on_shards(lambda t, s, b: group_norm_heads({"scale": s, "bias": b}, t), o,
+                     params=(shard(p["ln_x"]["scale"], "tp"), shard(p["ln_x"]["bias"], "tp")))
+
+
 def time_mix_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 32):
-    """x: (B, S, D) -> (out (B, S, D), {"wkv" (B, H, dh, dh) fp32, "shift" (B, D)})."""
+    """x: (B, S, D) -> (out (B, S, D), {"wkv" (B, H, dh, dh) fp32, "shift" (B, D)}).
+    On a mesh the chunk scan and the group norm run on each rank's heads."""
     H, dh = heads(cfg)
     B, S, D = x.shape
     dt = x.dtype
-    xprev = F.pad(x, (0, 0, 1, 0))[:, :S]
-    xw, xk, xv, xr, xg = _ddlerp(p, x, xprev)
-    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, dh)
-    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, dh)
-    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, dh)
+    x, xprev = _shift(x)
+    xw, xk, xv, xr, xg = _mixes(p, x, xprev)
+    r = _heads(xr @ p["wr"].to(dt), H, dh)
+    k = _heads(xk @ p["wk"].to(dt), H, dh)
+    v = _heads(xv @ p["wv"].to(dt), H, dh)
     g = F.silu(xg @ p["wg"].to(dt))
-    w = _decay(p, xw).reshape(B, S, H, dh)
-    out, state = _wkv_chunk_scan(r.float(), k.float(), v.float(), w, p["u"], chunk)
-    out = group_norm_heads(p["ln_x"], out.to(dt))
-    return (out.reshape(B, S, D) * g) @ p["wo"].to(dt), {"wkv": state, "shift": x[:, -1]}
+    w = _heads(_decay(p, xw), H, dh)
+    pl = getattr(r, "placements", None)  # (B, S, H, K): out alike, the state (B, H, K, V)
+    out, state = on_local(lambda *t: _wkv_chunk_scan(*t, chunk), r.float(), k.float(), v.float(),
+                          w, shard(p["u"], "tp", None), out=[pl, regrid(pl, {0: 0, 2: 1})])
+    out = _group_norm(p, out.to(dt))
+    out = (out.reshape(B, S, D) * g) @ p["wo"].to(dt)
+    return shard(out, "dp", "sp", None), {"wkv": state, "shift": x[:, -1]}
+
+
+def _wkv_step(r, k, v, w, S_, u):
+    """One token of the recurrence on the heads given: `S_` (B, H, K, V) advanced in
+    place; returns out (B, H, V)."""
+    a = torch.einsum("bhk,bhv->bhkv", k, v)
+    o = torch.einsum("bhk,bhkv->bhv", r, S_ + u[None, :, :, None] * a)
+    S_.copy_(w[..., None] * S_ + a)
+    return o
 
 
 def time_mix_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> torch.Tensor:
-    """x: (B, 1, D) -> out (B, 1, D); `state` {"wkv", "shift"} updated in place."""
+    """x: (B, 1, D) -> out (B, 1, D); `state` {"wkv", "shift"} updated in place (on a
+    mesh each rank's heads of "wkv", per `rwkv6_state_specs`)."""
     H, dh = heads(cfg)
     B, _, D = x.shape
     dt = x.dtype
     xt = x[:, 0]
-    xw, xk, xv, xr, xg = _ddlerp(p, xt, state["shift"])
-    r = (xr @ p["wr"].to(dt)).reshape(B, H, dh).float()
-    k = (xk @ p["wk"].to(dt)).reshape(B, H, dh).float()
-    v = (xv @ p["wv"].to(dt)).reshape(B, H, dh).float()
+    xw, xk, xv, xr, xg = _mixes(p, xt, state["shift"])
+    r = _heads(xr @ p["wr"].to(dt), H, dh).float()
+    k = _heads(xk @ p["wk"].to(dt), H, dh).float()
+    v = _heads(xv @ p["wv"].to(dt), H, dh).float()
     g = F.silu(xg @ p["wg"].to(dt))
-    w = _decay(p, xw).reshape(B, H, dh)
-    S_ = state["wkv"]  # (B, H, K, V)
-    a = torch.einsum("bhk,bhv->bhkv", k, v)
-    o = torch.einsum("bhk,bhkv->bhv", r, S_ + p["u"][None, :, :, None] * a)
-    S_.copy_(w[..., None] * S_ + a)
-    state["shift"].copy_(xt)
-    o = group_norm_heads(p["ln_x"], o.to(dt).reshape(B, 1, H, dh))
+    w = _heads(_decay(p, xw), H, dh)
+    o = on_local(_wkv_step, r, k, v, w, state["wkv"], shard(p["u"], "tp", None),
+                 out=[getattr(r, "placements", None)])
+    write(state["shift"], xt)
+    o = _group_norm(p, o.to(dt).reshape(B, 1, H, dh))
     return ((o.reshape(B, D) * g) @ p["wo"].to(dt))[:, None, :]
 
 
@@ -137,15 +184,15 @@ def _channel_mix(p: dict, x: torch.Tensor, xprev: torch.Tensor) -> torch.Tensor:
 
 def channel_mix_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, D) -> (out, {"shift" (B, D)})."""
-    xprev = F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
-    return _channel_mix(p, x, xprev), {"shift": x[:, -1]}
+    x, xprev = _shift(x)
+    return shard(_channel_mix(p, x, xprev), "dp", "sp", None), {"shift": x[:, -1]}
 
 
 def channel_mix_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> torch.Tensor:
     """x: (B, 1, D) -> out (B, 1, D); `state` {"shift"} updated in place."""
     xt = x[:, 0]
     out = _channel_mix(p, xt, state["shift"])
-    state["shift"].copy_(xt)
+    write(state["shift"], xt)
     return out[:, None, :]
 
 
@@ -157,3 +204,9 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, device) -> dict:
                "shift": torch.zeros(batch, D, dtype=dt, device=device)},
         "cm": {"shift": torch.zeros(batch, D, dtype=dt, device=device)},
     }
+
+
+def rwkv6_state_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of the decode state, JAX's `rwkv6_state_specs`."""
+    return {"tm": {"wkv": ("dp", "tp", None, None), "shift": ("dp", None)},
+            "cm": {"shift": ("dp", None)}}

@@ -36,6 +36,12 @@ engine splices admitted slots on it). The cache is updated IN PLACE:
 `decode_step` writes into the tensors it is given and returns the same dict
 (JAX donates the cache buffers to the same effect).
 
+On a mesh (`parallel/axes.py::use_mesh`, params placed per `pspecs`) every
+family trains and serves. `prefill`, `init_cache` and `decode_step` take
+JAX's `cp`: the cache is placed per `cache_pspecs(cp)` (`cache_shapes` gives
+its global shapes on the meta device), filled and advanced in place on each
+rank's shard, and the logits come back whole on every rank.
+
 `Model(cfg, kernels=True)` runs the RMSNorms, the fused residual-add norm,
 the qk-norms and both attentions through the port's CUDA kernels (their
 plain versions on CPU tensors). LayerNorm, Mamba2 and RWKV6 have no kernel:
@@ -49,6 +55,7 @@ import contextlib
 import functools
 
 import torch
+from torch.distributed.tensor import distribute_tensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -60,7 +67,8 @@ from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
                                        n_head_layers, param_defs, param_specs, unstacked_layers)
-from repro_torch.parallel.axes import on_shards, shard, whole
+from repro_torch.parallel.axes import (activation_pspec, current_mesh, is_dtensor, logical_spec,
+                                       on_shards, placements, shard, whole, write, zeros)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # the slot axis of every cache leaf, by the part of the cache it is in
@@ -149,12 +157,13 @@ def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
 
 
 def _fill(cache: dict, state: dict) -> None:
-    """Copy a sequence path's final state into the cache's views of the same structure."""
+    """Copy a sequence path's final state into the cache's views of the same structure
+    (on a mesh, each rank into its own shard: `write`)."""
     for k, v in state.items():
         if isinstance(v, dict):
             _fill(cache[k], v)
         else:
-            cache[k].copy_(v)
+            write(cache[k], v)
 
 
 def _apply_mamba_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
@@ -162,7 +171,7 @@ def _apply_mamba_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
     advances it."""
     h = _norm(p["ln1"], x, kernels)
     if mode == "decode":
-        return x + mamba2.mamba2_decode(cfg, p["mamba"], h, cache), None
+        return shard(x + mamba2.mamba2_decode(cfg, p["mamba"], h, cache), "dp", "sp", None), None
     m, state = mamba2.mamba2_seq(cfg, p["mamba"], h)
     if mode == "prefill":
         _fill(cache, state)
@@ -171,14 +180,14 @@ def _apply_mamba_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels
 
 def _apply_rwkv_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
     """Time mix, then channel mix, each after its LayerNorm: (x, None)."""
-    h = apply_norm(p["ln1"], x)
+    h = _norm(p["ln1"], x, False)
     if mode == "decode":
         x = x + rwkv6.time_mix_decode(cfg, p["tm"], h, cache["tm"])
-        h = apply_norm(p["ln2"], x)
-        return x + rwkv6.channel_mix_decode(cfg, p["cm"], h, cache["cm"]), None
+        h = _norm(p["ln2"], x, False)
+        return shard(x + rwkv6.channel_mix_decode(cfg, p["cm"], h, cache["cm"]), "dp", "sp", None), None
     a, tm = rwkv6.time_mix_seq(cfg, p["tm"], h)
     x = x + a
-    c, cm = rwkv6.channel_mix_seq(cfg, p["cm"], apply_norm(p["ln2"], x))
+    c, cm = rwkv6.channel_mix_seq(cfg, p["cm"], _norm(p["ln2"], x, False))
     if mode == "prefill":
         _fill(cache, {"tm": tm, "cm": cm})
     return shard(x + c, "dp", "sp", None), None
@@ -377,9 +386,41 @@ class Model:
             loss = loss + cfg.moe.aux_loss_coef * (aux["moe_lb_loss"] + aux["moe_z_loss"])
         return loss, {"loss": loss, "ce": ce, "accuracy": hits / n, **aux}
 
-    def init_cache(self, batch_size: int, max_len: int, device) -> dict:
-        """Zeroed cache for decode-from-scratch."""
+    def cache_pspecs(self, cp: bool = False) -> dict:
+        """The spec of every cache leaf under the current rules (JAX's
+        `Model.cache_pspecs`), the tree of `init_cache`: the attention caches per
+        `attn.cache_axes`, the Mamba2 and RWKV6 states per their state specs, a
+        stacked leaf with a leading None a stack dim. `pos` is a host int in the
+        port; its spec is the empty one, as JAX's scalar `pos` leaf is replicated."""
         cfg = self.cfg
+
+        def stacked(tree, n):
+            return {k: stacked(v, n) if isinstance(v, dict) else logical_spec(*(None,) * n, *v)
+                    for k, v in tree.items()}
+
+        if self.is_hybrid:
+            a, m = attn.attn_cache_specs(cfg, cp), mamba2.mamba2_state_specs(cfg)
+            cache = {}
+            if self.n_seg:
+                cache["seg"] = {"shared": stacked(a, 1), "mamba": stacked(m, 2)}
+            if self.n_tail:
+                cache["tail"] = {"shared": stacked(a, 0),
+                                 "mamba": tuple(stacked(m, 0) for _ in range(self.n_tail))}
+        elif self.is_rwkv:
+            cache = {"layers": stacked(rwkv6.rwkv6_state_specs(cfg), 1)}
+        else:
+            a = {"kv": attn.attn_cache_specs(cfg, cp)}
+            cache = {"layers": stacked(a, 1)}
+            if self.n_head:
+                cache["head_layers"] = {str(i): stacked(a, 0) for i in range(self.n_head)}
+        cache["pos"] = logical_spec()
+        return cache
+
+    def cache_shapes(self, batch_size: int, max_len: int, cp: bool = False) -> dict:
+        """The cache's tree on the meta device (JAX's `Model.cache_shapes`): each leaf's
+        global shape and dtype, nothing allocated; `pos` the host int 0. `cp` changes
+        placements only, never shapes."""
+        cfg, device = self.cfg, "meta"
         if self.is_hybrid:
             a1 = attn.init_attn_cache(cfg, batch_size, max_len, device)
             m1 = mamba2.init_mamba2_state(cfg, batch_size, device)
@@ -403,23 +444,52 @@ class Model:
         cache["pos"] = 0
         return cache
 
-    def prefill(self, params: dict, batch: dict, max_len: int):
-        """Returns (last-token logits (B, V) fp32, decode-ready cache)."""
+    def init_cache(self, batch_size: int, max_len: int, device, cp: bool = False) -> dict:
+        """Zeroed cache for decode-from-scratch. On a mesh each leaf is a DTensor placed
+        per `cache_pspecs(cp)` (sanitized against its shape), each rank allocating only
+        its own shard (`parallel.axes.zeros`)."""
+        def place(t, spec):
+            if isinstance(t, dict):
+                return {k: place(v, spec[k]) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(place(v, sp) for v, sp in zip(t, spec))
+            return zeros(t.shape, t.dtype, device, spec) if isinstance(t, torch.Tensor) else t
+
+        return place(self.cache_shapes(batch_size, max_len), self.cache_pspecs(cp))
+
+    def _place_input(self, t: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, S) or embeddings (B, S, D) on a mesh: a DTensor with its batch on
+        dp, each rank keeping its rows of the same global batch (nothing is sent);
+        as is off a mesh."""
+        mesh = current_mesh()
+        if mesh is None or is_dtensor(t):
+            return t
+        spec = activation_pspec(("dp",) + (None,) * (t.dim() - 1), tuple(t.shape), mesh)
+        return distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None)
+
+    def prefill(self, params: dict, batch: dict, max_len: int, cp: bool = False):
+        """Returns (last-token logits (B, V) fp32, decode-ready cache). On a mesh (params
+        placed per `pspecs`), the cache is placed per `cache_pspecs(cp)` and the
+        logits are whole on every rank."""
+        batch = {k: self._place_input(v) for k, v in batch.items()}
         x = self._inputs_to_hidden(params, batch)
         B, S, _ = x.shape
-        cache = self.init_cache(B, max_len, x.device)
+        cache = self.init_cache(B, max_len, x.device, cp=cp)
         for apply, p, c in self._blocks(params, cache):
             x, _ = apply(self.cfg, p, x, "prefill", c, max_len=max_len, kernels=self.kernels)
-        x = _norm(params["final_norm"], x[:, -1].contiguous(), self.kernels)
+        x = shard(x, "dp", None, None)[:, -1]
+        x = _norm(params["final_norm"], x.contiguous(), self.kernels)
         cache["pos"] = S
-        return self._head(params, x), cache
+        return whole(self._head(params, x)), cache
 
-    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
-        """One autoregressive step. tokens: (B, 1) -> (logits (B, V) fp32, cache)."""
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, cp: bool = False):
+        """One autoregressive step. tokens: (B, 1) -> (logits (B, V) fp32, cache). `cp`,
+        as JAX's, names the cache's placement, which on a mesh the cache itself
+        carries; the logits are whole on every rank."""
         pos = cache["pos"]
-        x = embed_lookup(params["embed"], tokens, self.cfg.compute_dtype)
+        x = embed_lookup(params["embed"], self._place_input(tokens), self.cfg.compute_dtype)
         for apply, p, c in self._blocks(params, cache):
             x, _ = apply(self.cfg, p, x, "decode", c, pos=pos, kernels=self.kernels)
         x = _norm(params["final_norm"], x[:, 0].contiguous(), self.kernels)
         cache["pos"] = pos + 1
-        return self._head(params, x), cache
+        return whole(self._head(params, x)), cache

@@ -5,8 +5,9 @@ donates it). On a mesh (`mesh`, a DeviceMesh, and `rules`) the parameters,
 moments and error feedback are DTensors placed by their sanitized specs (the
 moments' ZeRO-1 ones, `opt_state_specs`), each batch is placed on ("dp",
 None), and every step runs under `use_mesh`; every rank gets the same
-metrics. The dense and MoE families train on a mesh; the hybrid and ssm ones
-wait for their sharding annotations (ROADMAP A6b).
+metrics. Every family trains on a mesh: the hybrid's stacked segment leaves
+and the shared block, and RWKV6's leaves, are placed per `param_specs` as
+the dense and MoE ones are.
   * checkpoint/restart: `CheckpointManager` (async, atomic, JAX's format);
     `resume()` restores the latest step under the current mesh (elastic: a
     job restarted on another mesh re-shards).
@@ -58,10 +59,6 @@ def sync(device: torch.device) -> None:
 class Trainer:
     def __init__(self, model: Model, pcfg: ParallelConfig, tcfg: TrainConfig, device,
                  mesh=None, rules: ShardingRules | None = None):
-        if mesh is not None and model.cfg.family in ("hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{model.cfg.name}: the {model.cfg.family} family on a mesh waits for its "
-                "sharding annotations (ROADMAP A6b)")
         self.model, self.pcfg, self.tcfg = model, pcfg, tcfg
         self.device = torch.device(device)
         self.mesh, self.rules = mesh, rules or ShardingRules()

@@ -220,16 +220,3 @@ def test_moe_dispatch_groups_match_jax():
     for k, v in jaux.items():
         assert abs(float(aux[k]) - float(v)) < 1e-6, k
     assert float(aux1["moe_drop_frac"]) != float(aux["moe_drop_frac"])  # the groups matter
-
-
-@pytest.mark.parametrize("arch", ["zamba2_1p2b", "rwkv6_7b"])
-def test_trainer_refuses_the_hybrid_and_ssm_families_on_a_mesh(arch):
-    import torch
-
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.train.trainer import Trainer
-
-    _, tm = _meshes("2x4")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        Trainer(Model(get_config(arch).reduced()), ParallelConfig(), TrainConfig(),
-                torch.device("cpu"), mesh=tm, rules=_launcher_rules(("data", "model"), taxes))

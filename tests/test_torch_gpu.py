@@ -166,6 +166,27 @@ def test_decode_attention_kernel(dev, dtype, B, Hkv, G, T, dh, nv):
     assert _err(out, decode_attention_ref(q, k, v, nv)) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hkv,G,T,dh,nv", [(4, 8, 5, 2048, 128, 1100), (4, 8, 4, 4096, 80, 4096),
+                                             (1, 2, 4, 600, 32, 77), (4, 32, 1, 2048, 64, 1),
+                                             (2, 1, 16, 2048, 128, 700)])
+def test_decode_attention_lse_output(dev, dtype, B, Hkv, G, T, dh, nv):
+    """With `lse` the same launch writes the log-sum-exp of the scaled scores beside
+    an output equal bit for bit to the one without it; the LSE within 1e-4 of the
+    plain float32 LSE (`SPLIT_NOTE`'s LSE_TOL in chip_smoke.py)."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (B, Hkv, G, dh), dtype, dev)
+    k, v = (_randn(rng, (B, T, Hkv, dh), dtype, dev).transpose(1, 2) for _ in range(2))
+    n0 = build.LAUNCHES["decode_attention"]
+    out, lse = flash_decode(q, k, v, nv, lse=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == n0 + 1
+    assert lse.shape == (B, Hkv, G) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_decode(q, k, v, nv))
+    _, lse32 = decode_attention_ref(q.float(), k.float(), v.float(), nv, lse=True)
+    assert _err(lse, lse32) <= 1e-4
+
+
 def _decode_case(dev, dtype, B, Hkv, G, T, dh, seed=12):
     rng = np.random.default_rng(seed)
     q = _randn(rng, (B, Hkv, G, dh), dtype, dev)
