@@ -95,6 +95,14 @@ Phases, each of which fails the run with a non-zero exit:
                the kernel, joined by `lse_combine`, against the whole cache's
                kernel and its plain version (SPLIT_NOTE); the kernel timed with
                and without the LSE output.
+ 11. plan    - the dry-run and the analytical model beside the card
+               (PLAN_NOTE): (a) the dry-run's traced peak memory of a training
+               step of h2o-danube-1.8b at full width and 2 layers within 10% of
+               the card's measured peak for the same step, and its flop count
+               beside MFU_NOTE's; (b) the port's copy of the analytical H100
+               model beside phase 7's training runs (step s, peak memory) and
+               phase 5's serves (prefill s, decode ms); (c) `launch.train
+               --auto-plan` for 8 H100s in a subprocess.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -106,6 +114,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1527,6 +1536,13 @@ def product_params(cfg) -> int:
     return total
 
 
+def attention_flops(cfg, batch: int, seq: int) -> int:
+    """MFU_NOTE's attention term: 14 dh flops a live query-key pair a head at each
+    attention block."""
+    return 14 * cfg.head_dim * live_pairs(seq, cfg.sliding_window) * batch * cfg.num_heads * \
+        attention_blocks(cfg)
+
+
 def phase_train_run(dev, cfg, smi, *, batch=2, seq=6144, steps=6, warmup=2, remat="selective",
                     optimizer="adamw") -> dict:
     """The training path at the config's full width (and the depth given) through
@@ -1551,8 +1567,7 @@ def phase_train_run(dev, cfg, smi, *, batch=2, seq=6144, steps=6, warmup=2, rema
     step_s = float(np.mean(out["step_times"][warmup:]))
     tokens = out["tokens_per_step"]
     n_prod = product_params(cfg)
-    attn = 14 * cfg.head_dim * live_pairs(seq, cfg.sliding_window) * batch * cfg.num_heads * \
-        attention_blocks(cfg)
+    attn = attention_flops(cfg, batch, seq)
     flops = 6 * n_prod * tokens + attn
     mfu = flops / step_s / PEAK_BF16
     mem = (out["max_memory_allocated"] or 0) / 2**30
@@ -2149,6 +2164,144 @@ def _lse_timing(rng, dev, B, Hkv, G, T, dh, nv) -> dict:
         f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return {**t, "ms_without_lse": without}
 
+# ------------------------------------------------------------------- phase 11
+# PLAN_NOTE: phase 11 sets the port's analytical model and dry-run beside the card.
+# (a) The dry-run's trace (`launch.dryrun.trace_cell`: fake tensors, the live bytes
+# of every storage tracked) of one training step of h2o-danube-1.8b at full width
+# and PLAN_MEM's depth, off a mesh, with `kernels=False` (the function JAX's
+# dry-run lowers), against the same step run for real on the card, also with
+# `kernels=False`: the traced peak (state included) within PLAN_MEM_TOL of
+# `torch.cuda.max_memory_allocated` after a warm-up step and a reset, which the
+# caching allocator's rounding of each block to 512 bytes and the cuBLAS
+# workspaces (made by the warm-up step, not traced) move by far less. The trace's
+# flop count is printed beside MFU_NOTE's count of the same step. (b) The port's
+# copy of the analytical model (`repro_torch.core`) for the H100: each training run
+# of phase 7 (`predict.train_step_time`, `memory.training_memory` on one device)
+# and each serve of phase 5 (`predict.inference_latency` at tp 1, the batch the
+# slots, the mean prompt and the new tokens; prefill from its TTFT, decode from
+# its TPOT), printed beside what the card measured, with the ratio; printed, not
+# barred. (c) `launch.train --auto-plan` in a subprocess (AUTO_PLAN): it must exit
+# 0 and print at least one plan.
+PLAN_MEM = dict(layers=2, batch=2, seq=6144, remat="selective")
+PLAN_MEM_TOL = 0.10
+AUTO_PLAN = ["-m", "repro_torch.launch.train", "--arch", "h2o-danube-1.8b", "--auto-plan",
+             "--chips", "8", "--hardware", "h100", "--batch", "16", "--seq", "4096"]
+
+
+def _step_peak(dev, cfg, batch: int, seq: int, remat: str, seed: int = 0) -> int:
+    """Peak allocated bytes of one real training step with `kernels=False` on `dev`,
+    the state (params in their training dtypes, fp32 moments) and the batch
+    included: a warm-up step, a reset of the peak, a second step."""
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    model = Model(cfg, kernels=False)
+    tcfg = TrainConfig()
+    state = {"params": model.init(seed, dev, widen_head=False)}
+    state["opt"] = adamw_init(state["params"], tcfg)
+    data = SyntheticLM(cfg.vocab_size, seq, batch).batch(0)
+    batch_t = {k: torch.as_tensor(np.asarray(v), dtype=torch.int32, device=dev)
+               for k, v in data.items()}
+    step = make_train_step(model, ParallelConfig(remat=remat), tcfg)
+    state, _ = step(state, batch_t)  # the warm-up: the library workspaces are made here
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, metrics = step(state, batch_t)
+    sync()
+    if not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"plan: the real step's loss is {metrics['loss']}")
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def phase_plan_memory(dev, smi, *, layers=2, batch=2, seq=6144, remat="selective",
+                      measure=_step_peak, cfg=None) -> dict:
+    """PLAN_NOTE (a): the dry-run's traced peak of a training step against the
+    card's measured peak of the same step (`measure`); the trace's flops beside
+    MFU_NOTE's. `cfg` (h2o-danube-1.8b's) is cut to `layers`."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.parallel.axes import ShardingRules
+
+    cfg = dataclasses.replace(cfg or get_config("h2o_danube_1p8b"), num_layers=layers)
+    shape = ShapeSpec("plan", seq, batch, "train")
+    trace = trace_cell(cfg, shape, None, ShardingRules(), policy=(1, remat), log=lambda *_: None)
+    traced = trace["memory"]["peak_bytes_per_device"]
+    measured = measure(dev, cfg, batch, seq, remat)
+    ratio = traced / measured
+    flops = trace["cost"]["flops_per_device"]
+    model_flops = 6 * product_params(cfg) * batch * seq + attention_flops(cfg, batch, seq)
+    log(f"[plan] (a) {cfg.name} L{layers} B{batch} x S{seq}, remat {remat}, kernels=False: "
+        f"dry-run trace peak {traced} B ({traced / 2**30:.3f} GiB; state "
+        f"{trace['memory']['param_bytes'] + trace['memory']['opt_bytes']} B) against "
+        f"max_memory_allocated {measured} B ({measured / 2**30:.3f} GiB) on "
+        f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev} ({smi}): ratio "
+        f"{ratio:.4f} (bar 1 +- {PLAN_MEM_TOL}); traced flops {flops / 1e12:.3f} TFLOP against "
+        f"MFU_NOTE's {model_flops / 1e12:.3f} (ratio {flops / model_flops:.4f}; the trace counts "
+        f"remat's recompute and every masked attention block, MFU_NOTE neither); traced in "
+        f"{trace['trace_s']} s")
+    if abs(ratio - 1) > PLAN_MEM_TOL:
+        raise AssertionError(f"plan: traced peak {traced} B is not within {PLAN_MEM_TOL:.0%} of "
+                             f"the measured {measured} B")
+    return {"traced": traced, "measured": measured, "ratio": ratio, "flops": flops,
+            "model_flops": model_flops}
+
+
+def phase_plan_model(smi, serves: dict, trains: dict, serve_shapes: dict, train_runs: dict,
+                     hw=None) -> dict:
+    """PLAN_NOTE (b): the analytical H100 model beside phase 5's serves and phase 7's
+    training runs. `serve_shapes` {name: (config, slots, mean prompt, new)};
+    `train_runs` {name: (config, TRAIN_RUNS entry)}."""
+    from repro_torch.core import predict
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.memory import training_memory
+    from repro_torch.core.parallelism import Mapping
+
+    hw = hw or H100_SXM
+    out = {"train": {}, "serve": {}}
+    for name, (cfg, run) in train_runs.items():
+        B, S, remat = run["batch"], run["seq"], run["remat"]
+        opt8 = run.get("optimizer") == "adamw8bit"
+        m = Mapping(dp=1, tp=1, pp=1, microbatch=B, recompute=remat, opt_8bit=opt8)
+        t = predict.train_step_time(cfg, hw, m, global_batch=B, seq=S).total
+        mem = training_memory(cfg, global_batch=B, seq=S, dp=1, tp=1, pp=1, sp=False,
+                              microbatch=B, recompute=remat, opt_8bit=opt8).total / 2**30
+        r = trains[name]
+        out["train"][name] = {"step_s": t, "peak_gib": mem, "measured_step_s": r["step_s"],
+                              "measured_peak_gib": r["peak_gib"]}
+        log(f"[plan] (b) train {name} B{B} x S{S} remat {remat}: {hw.name} model step "
+            f"{t:.4f} s against measured {r['step_s']:.4f} s (measured / model "
+            f"{r['step_s'] / t:.3f}); memory model {mem:.2f} GiB against peak "
+            f"{r['peak_gib']:.2f} GiB ({r['peak_gib'] / mem:.3f}) ({smi})")
+    for name, (cfg, slots, prompt, new) in serve_shapes.items():
+        b = predict.inference_latency(cfg, hw, tp=1, batch=slots, prompt=prompt, gen=new)
+        r = serves[name]
+        pre = r["prefill_seconds"] / max(r["admissions"], 1)
+        dec = 1e3 * r["decode_seconds"] / max(r["decode_steps"], 1)
+        out["serve"][name] = {"prefill_s": b.ttft, "decode_ms": 1e3 * b.tpot,
+                              "measured_prefill_s": pre, "measured_decode_ms": dec}
+        log(f"[plan] (b) serve {name} batch {slots}, prompt {prompt}, {new} new: {hw.name} "
+            f"model prefill {b.ttft:.4f} s against measured {pre:.4f} s a admission "
+            f"({pre / b.ttft:.3f}); decode {1e3 * b.tpot:.3f} ms against {dec:.3f} ms a step "
+            f"({dec / (1e3 * b.tpot):.3f}) ({smi})")
+    return out
+
+
+def phase_auto_plan(root: Path = ROOT, args=AUTO_PLAN, timeout: float = 300.0) -> list[str]:
+    """PLAN_NOTE (c): the launcher's `--auto-plan` in a subprocess of this Python."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out = subprocess.run([sys.executable, *args], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"plan: --auto-plan exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    plans = [ln for ln in lines if ln.startswith("  dp")]
+    if not lines or not lines[0].startswith("auto-plan: ") or not plans:
+        raise AssertionError(f"plan: --auto-plan printed no plan: {out.stdout[-2000:]}")
+    for ln in lines:
+        log(f"[plan] (c) {ln}")
+    return plans
+
+
 def train_config(arch: str):
     """A training run's config: full width, `layers` deep where TRAIN_RUNS cuts it."""
     cfg = get_config(arch)
@@ -2250,6 +2403,17 @@ def main() -> None:
     cp = phase_cp_serve(dev, full, smi, seed=args.seed, **CP_SERVE)
     torch.cuda.empty_cache()
     t_new = time.perf_counter() - t_new
+    t_plan = time.perf_counter()  # phase 11
+    phase_plan_memory(dev, smi, **PLAN_MEM)
+    torch.cuda.empty_cache()
+    serve_shapes = {full.name: (full, 4, 1000, 32)}  # phase_serve's defaults
+    for arch, traffic in SERVE_TRAFFIC.items():
+        cfg = get_config(arch)
+        serve_shapes[cfg.name] = (cfg, 4, sum(traffic["prompt_len"]) // 2, traffic["max_new"])
+    train_runs = {train_config(a).name: (train_config(a), r) for a, r in TRAIN_RUNS.items()}
+    phase_plan_model(smi, serves, trains, serve_shapes, train_runs)
+    phase_auto_plan()
+    t_plan = time.perf_counter() - t_plan
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
@@ -2258,8 +2422,8 @@ def main() -> None:
             f"mesh {rwkv.name} L{rwkv.num_layers} (1x1, sequence parallel)": mesh_d["launches"],
             f"cp serve {full.name} (1x1)": cp["launches"]}
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
-        f"the mesh phase's (a) and (b) {t_mesh:.1f}s, and its (c) and (d), the cp serve and the "
-        f"split phases {t_new:.1f}s")
+        f"the mesh phase's (a) and (b) {t_mesh:.1f}s, its (c) and (d), the cp serve and the "
+        f"split phases {t_new:.1f}s, and the plan phase {t_plan:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
     # over the serve runs, the training runs and the mesh runs (each rank's)
     sources = {**KERNELS, **TRAIN_KERNELS}

@@ -1,10 +1,22 @@
-"""Architecture registry of the port: every config of the JAX package."""
+"""Architecture registry of the port: every config of the JAX package, and the
+input specs of every (arch x shape) cell of the dry-run."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoECfg, SSMCfg  # noqa: F401
+import torch
+
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    SMOKE_SHAPES,
+    ModelConfig,
+    MoECfg,
+    ParallelConfig,
+    ShapeSpec,
+    SSMCfg,
+    TrainConfig,
+)
 
 ARCHS = [
     "qwen3_14b",
@@ -43,3 +55,39 @@ def get_config(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return list(ARCHS)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Stand-ins on the meta device for the model-input part of a step (JAX's
+    ShapeDtypeStructs: the same shapes and dtypes, nothing allocated).
+
+    train  -> {tokens|embeds, labels}
+    prefill-> {tokens|embeds}
+    decode -> {tokens (B, 1)}  (the KV/state cache comes from
+              Model.cache_shapes and is composed by the caller)
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": tok(B, 1)}
+    if cfg.input_mode == "embeds":
+        inputs = {"embeds": torch.empty((B, S, cfg.d_model), dtype=cfg.compute_dtype,
+                                        device="meta")}
+    else:
+        inputs = {"tokens": tok(B, S)}
+    if shape.kind == "train":
+        inputs["labels"] = tok(B, S)
+    return inputs
+
+
+def applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; reason recorded when skipped."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "skipped: pure full-attention arch — 524k dense-KV decode is excluded "
+            "by the assignment (sub-quadratic attention required); see DESIGN.md §5"
+        )
+    return True, ""

@@ -92,6 +92,11 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when long-context decode is O(1)/O(window) per token."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the same values as the JAX `reduced()`)."""
         small: dict[str, Any] = dict(
@@ -125,6 +130,31 @@ class ModelConfig:
             small["attn_every"] = 2
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# the cells of the dry-run's sweep (`repro.configs.base.SHAPES`)
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# Reduced shapes used by smoke tests (same kinds, tiny extents).
+SMOKE_SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 64, 2, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 64, 2, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 64, 2, "decode"),
+    "long_500k": ShapeSpec("long_500k", 128, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

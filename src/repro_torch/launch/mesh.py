@@ -49,11 +49,12 @@ def parse_mesh(text: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
     return shape, ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """16x16 (data, model); multi-pod adds a leading 2-pod axis."""
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+    """16x16 (data, model); multi-pod adds a leading 2-pod axis. `device_type` as
+    `make_mesh`'s (the dry-run's fake world takes "cpu")."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def rules_for(mesh, shape=None, *, sequence_parallel: bool = True,

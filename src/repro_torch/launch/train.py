@@ -5,6 +5,8 @@
       --checkpoint-dir build/ckpt --checkpoint-every 10 [--resume]
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen3-14b --mesh 2x2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-175b --auto-plan \\
+      --chips 1024 --batch 1024   # analytic planning only (no execution)
 
 The command line trains the reduced config (`--reduced` is always on, as in
 JAX's launcher) on CUDA unless `--device` names another. `--arch` and `run`
@@ -13,8 +15,10 @@ full-width model with the same code (`chip_smoke.py` does). `--mesh DxM`
 (or `PxDxM`) trains on a (data, model) (or (pod, data, model)) mesh of
 `torchrun`'s processes, gloo on the CPU and NCCL on CUDA, with JAX's rules:
 batch over the data axes, weights over "model", ZeRO-1 over the data axes.
-`--auto-plan`, `--chips`, `--hardware` wait for the planner's port (ROADMAP
-A7b): they are accepted and refused.
+`--auto-plan` runs the paper's analytical planner (`repro_torch.core.planner`)
+for `--chips` devices of `--hardware` at `--batch` x `--seq` and prints the
+best mappings, as JAX's launcher does; it touches no device, and `--arch`
+then also takes the paper's GPT and Llama-2 configs (`core/paper_data.py`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.distributed
 from repro_torch import resolve_device
 from repro_torch.configs import ALIASES, ARCHS, get_config
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
+from repro_torch.core.paper_data import GPT_CONFIGS, LLAMA2_CONFIGS
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import make_mesh, parse_mesh
@@ -107,7 +112,8 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, batch: in
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=[*ALIASES, *ARCHS])
+    ap.add_argument("--arch", required=True,
+                    choices=[*ALIASES, *ARCHS, *GPT_CONFIGS, *LLAMA2_CONFIGS])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="always on, as in JAX's launcher: the command line trains reduced configs")
@@ -123,13 +129,23 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default="",
                     help="DxM or PxDxM: train on a mesh of torchrun's processes")
-    ap.add_argument("--auto-plan", action="store_true",
-                    help="not yet: the analytical planner waits for ROADMAP A7b")
-    ap.add_argument("--chips", type=int, default=256, help="with --auto-plan (ROADMAP A7b)")
-    ap.add_argument("--hardware", default="tpu-v5e", help="with --auto-plan (ROADMAP A7b)")
+    # analytic planning path
+    ap.add_argument("--auto-plan", action="store_true")
+    ap.add_argument("--chips", type=int, default=256)
+    ap.add_argument("--hardware", default="tpu-v5e")
     args = ap.parse_args()
+
     if args.auto_plan:
-        raise SystemExit("--auto-plan: the analytical planner is not ported yet (ROADMAP A7b)")
+        from repro_torch.core.hardware import get_hardware
+        from repro_torch.core.planner import plan
+
+        cfg = (GPT_CONFIGS.get(args.arch) or LLAMA2_CONFIGS.get(args.arch)
+               or get_config(args.arch))
+        hw = get_hardware(args.hardware)
+        print(f"auto-plan: {cfg.name} on {args.chips} x {hw.name}, batch {args.batch}")
+        for p in plan(cfg, hw, args.chips, global_batch=args.batch, seq=args.seq, max_tp=64):
+            print(" ", p.describe())
+        return
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -94,8 +94,14 @@ def _causal_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, kernels: bool)
     q, k, v = _project_qkv(cfg, p, x, pos, kernels)
     if kernels:
         out = on_shards(lambda *t: fa_ops.flash_attention(*t, window=cfg.sliding_window), q, k, v)
-    else:
+    elif cfg.attn_impl == "dense" or S <= cfg.attn_chunk or S % cfg.attn_chunk:
         out = on_shards(lambda *t: _dense_attention(*t, pos, pos, cfg.sliding_window), q, k, v)
+    else:
+        # JAX's prefill takes its chunked attention here (online softmax over
+        # chunks, never more than a chunk's scores); the plain flash twin computes
+        # the same function (JAX asserts S a multiple of the chunk, the port keeps
+        # the dense path for other lengths)
+        out = flash_attention_vjp(q, k, v, cfg.sliding_window, cfg.attn_chunk, kernels=False)
     return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype), k, v
 
 
@@ -116,7 +122,13 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         out = on_shards(lambda *t: _dense_attention(*t, pos, pos, cfg.sliding_window), q, k, v)
     else:
         out = flash_attention_vjp(q, k, v, cfg.sliding_window, cfg.attn_chunk, kernels=kernels)
-    out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype)
+    out = out.reshape(B, S, cfg.q_dim)
+    if is_dtensor(out) and cfg.num_kv_heads % axes_size("tp"):
+        # heads replicated (`_heads`): the gradient of the row-parallel product
+        # below comes split over the flat q_dim, which cannot be viewed back
+        # into heads that tp does not divide; this pins it to the heads' layout
+        out = shard(out, "dp", None, None)
+    out = out @ p["wo"].to(out.dtype)
     return shard(out, "dp", "sp", None)
 
 
@@ -243,7 +255,8 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, po
     """
     B = x.shape[0]
     Hq, dh = cfg.num_heads, cfg.head_dim
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    # (S,) positions, S = 1: they broadcast over the batch, which a mesh may split
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions, kernels)
 
     K, V = cache["k"], cache["v"]

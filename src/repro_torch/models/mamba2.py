@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.axes import axes_size, on_local, regrid, shard, write
+from repro_torch.parallel.axes import axes_size, is_dtensor, on_local, regrid, shard, write
 
 
 def dims(cfg: ModelConfig):
@@ -236,8 +236,16 @@ def mamba2_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> to
     write(state["conv"], new_conv)
     h = _heads_split(cfg)
     xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm = _per_head(cfg, h, xh, dtr, z, Bm, Cm, p)
-    y = on_local(_ssd_step, xh, dtr, Bm, Cm, state["ssd"], a_log, d_skip, dt_bias,
+    ssd = state["ssd"]
+    if h is None and is_dtensor(ssd):
+        # heads replicated (`_heads_split`: tp does not split the groups) while JAX's
+        # spec splits the state by head: the step runs on a gathered copy, and each
+        # rank writes its own heads back
+        ssd = shard(ssd, "dp", None, None, None)
+    y = on_local(_ssd_step, xh, dtr, Bm, Cm, ssd, a_log, d_skip, dt_bias,
                  out=[getattr(z, "placements", None)])
+    if ssd is not state["ssd"]:
+        write(state["ssd"], ssd)
     y = _gated_norm(norm, y, z)
     return (y @ p["w_out"].to(dt_c))[:, None, :]
 

@@ -195,22 +195,27 @@ def _moe_mesh(cfg: ModelConfig, p: dict, x: torch.Tensor, G: int, aux: bool):
     """`_moe_groups` on a mesh: each dp shard's tokens are its group (JAX's groups of
     contiguous tokens, the group dim over dp). Each rank routes and scatters its
     group (`on_shards`; replicated over tp), runs the experts of its ep shard on
-    the buffer, the buffers are gathered back over ep, and it combines its tokens."""
+    the buffer, the buffers are gathered back over ep, and it combines its tokens.
+    Where the dp axes do not split the batch (B < G), every rank holds every token
+    and routes all G groups, and runs the experts of its own group."""
     B, S, D = x.shape
-    if B % G:
-        raise ValueError(f"batch {B} does not split into the {G} dispatch groups of the dp axes")
     K, C = cfg.moe.top_k, capacity(cfg.moe, B * S // G)
+    n_local = 1 if B % G == 0 else G  # the groups of a rank's tokens
 
     def dispatch(xl, router):
-        h, route, st = _dispatch(cfg, router, xl.reshape(-1, D), C)
-        return (h[None], *(t[None] for t in route), *(st[k][None] for k in STATS))
+        outs = [_dispatch(cfg, router, g, C) for g in xl.reshape(n_local, -1, D)]
+        h = torch.stack([o[0] for o in outs])
+        route = [torch.stack([o[1][i] for o in outs]) for i in range(4)]
+        return (h, *route, *(torch.stack([o[2][k] for o in outs]) for k in STATS))
 
     xg = shard(x, "dp", None, None)
     h, *rest = on_shards(dispatch, xg, params=(p["router"],), n_out=5 + len(STATS))
     route, st = rest[:4], dict(zip(STATS, rest[4:]))
     out = shard(_experts(cfg, p, shard(h, "dp", "ep", None, None)), "dp", None, None, None)
-    y = on_shards(lambda o, *r: _combine(K, o[0], *(t[0] for t in r)).view(-1, S, D),
-                  out, *route)
+    # (G, T / G, D): each rank its group's tokens
+    y = on_shards(lambda o, *r: _combine(K, o[0], *(t[0] for t in r))[None], out, *route)
+    if B % G:  # the groups cut the batch's rows: gather them before the tokens' view
+        y = shard(y, None, None, None)
     return y.reshape(B * S, D), st
 
 
@@ -232,7 +237,14 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *, aux: bool = True):
         y = y + apply_mlp(p["shared"], xf, cfg.act)
     if "dense" in p:
         y = y + apply_mlp(p["dense"], xf, cfg.act)
-    y = y.view(B, S, D)
+    if is_dtensor(y):
+        # on a mesh: the tokens as x's, so that they view back to (B, S, D), and the
+        # gradient, which comes split over the sequence too (sp) and which a view
+        # back to (T, D) would make a strided shard, pinned to the tokens' layout
+        y = y.redistribute(xf.device_mesh, xf.placements)
+        y = shard(y.view(B, S, D), "dp", None, None)
+    else:
+        y = y.view(B, S, D)
     if not aux:
         return y, None
     return y, {

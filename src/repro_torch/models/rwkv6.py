@@ -47,10 +47,19 @@ def _ddlerp(p: dict, x: torch.Tensor, xprev: torch.Tensor):
     return out.unbind(-2)
 
 
+def _pinned(out: torch.Tensor) -> torch.Tensor:
+    """A product's output (B, S, n), whole over the sequence, as its own layout: on a
+    mesh the gradient comes back to it in this layout, not in one DTensor picks
+    (split over the sequence too, or a partial sum reduced onto the tokens), which
+    the product's backward would flatten into a strided shard of the tokens: one
+    DTensor plans by a search over every mesh dim, and cannot always view back."""
+    return shard(out, "dp", None, None)
+
+
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     """Per-channel decay in (0, 1), float32: w = exp(-exp(w0 + lora(xw)))."""
     dt = xw.dtype
-    lora = torch.tanh(xw @ p["w_a"].to(dt)) @ p["w_b"].to(dt)
+    lora = torch.tanh(_pinned(xw @ p["w_a"].to(dt))) @ p["w_b"].to(dt)
     return torch.exp(-torch.exp(p["w0"] + lora.float()))
 
 
@@ -140,7 +149,7 @@ def time_mix_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 32):
     out, state = on_local(lambda *t: _wkv_chunk_scan(*t, chunk), r.float(), k.float(), v.float(),
                           w, shard(p["u"], "tp", None), out=[pl, regrid(pl, {0: 0, 2: 1})])
     out = _group_norm(p, out.to(dt))
-    out = (out.reshape(B, S, D) * g) @ p["wo"].to(dt)
+    out = _pinned((out.reshape(B, S, D) * g) @ p["wo"].to(dt))
     return shard(out, "dp", "sp", None), {"wkv": state, "shift": x[:, -1]}
 
 
@@ -178,14 +187,14 @@ def _channel_mix(p: dict, x: torch.Tensor, xprev: torch.Tensor) -> torch.Tensor:
     xx = xprev - x
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
-    vk = F.relu(xk @ p["wk"].to(dt)).square() @ p["wv"].to(dt)
+    vk = _pinned(F.relu(xk @ p["wk"].to(dt)).square() @ p["wv"].to(dt))
     return torch.sigmoid(xr @ p["wr"].to(dt)) * vk
 
 
 def channel_mix_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, D) -> (out, {"shift" (B, D)})."""
     x, xprev = _shift(x)
-    return shard(_channel_mix(p, x, xprev), "dp", "sp", None), {"shift": x[:, -1]}
+    return shard(_pinned(_channel_mix(p, x, xprev)), "dp", "sp", None), {"shift": x[:, -1]}
 
 
 def channel_mix_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> torch.Tensor:

@@ -137,19 +137,26 @@ def _norm(p: dict, x: torch.Tensor, kernels: bool) -> torch.Tensor:
 
 def _apply_dense_layer(cfg, p, x, mode, cache=None, pos=None, max_len=0, kernels=True):
     """One layer: (x, aux). `cache` is the layer's {"k", "v"}, filled (prefill) or
-    extended (decode). `aux` holds an MoE layer's metrics in `forward`, else None."""
-    h = _norm(p["ln1"], x, kernels)
+    extended (decode). `aux` holds an MoE layer's metrics in `forward`, else None.
+    On a mesh each norm's output is gathered whole over the sequence before the
+    column-parallel products (Megatron's all-gather of sequence parallelism): a
+    product flattening a (B, S, D) split on B over dp and on S over sp would make
+    a strided shard, which DTensor plans over a search of every mesh dim and
+    cannot always unflatten."""
+    h = shard(_norm(p["ln1"], x, kernels), "dp", None, None)
     if mode == "forward":
         a = attn.self_attention(cfg, p["attn"], h, kernels=kernels)
     elif mode == "prefill":
         a, _ = attn.prefill_attention(cfg, p["attn"], h, max_len, cache=cache, kernels=kernels)
     else:
         a, _ = attn.decode_attention(cfg, p["attn"], h, cache, pos, kernels=kernels)
+    a = shard(a, "dp", "sp", None)  # the output projection's partial sums, as the residual
     if kernels and "bias" not in p["ln2"]:  # RMSNorm: the fused residual-add kernel
         h, x = on_shards(rms_ops.rmsnorm_residual, x, a, params=(p["ln2"]["scale"],), n_out=2)
     else:
         x = x + a
         h = _norm(p["ln2"], x, False)
+    h = shard(h, "dp", None, None)
     if "moe" in p:
         m, aux = moe.apply_moe(cfg, p["moe"], h, aux=mode == "forward")
         return shard(x + m, "dp", "sp", None), aux
@@ -346,7 +353,11 @@ class Model:
         # logits over tp before them
         logits = shard(logits, "dp", None, None)
         valid = (y >= 0).float()
-        gold = logits.gather(-1, y.clamp_min(0)[..., None])[..., 0]
+        # the gold logit on each rank's rows: DTensor's strategy for the gather's
+        # backward (a scatter into zeros) replicates the chunk's float32 gradient
+        # over the data axes, the whole global batch's (B, chunk, V) on every rank
+        gold = on_shards(lambda lg, t: lg.gather(-1, t.clamp_min(0)[..., None])[..., 0],
+                         logits, y)
         nll = ((torch.logsumexp(logits, -1) - gold) * valid).sum()
         return nll, valid.sum(), ((logits.argmax(-1) == y).float() * valid).sum()
 

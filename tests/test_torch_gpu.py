@@ -599,3 +599,36 @@ def test_mesh_of_one_on_cuda_computes_the_single_device_step(dev, tmp_path, arch
     assert torch.equal(m0["loss"], m1["loss"])
     for k, v in g0.items():
         assert torch.equal(v, g1[k]), k
+
+
+@pytest.mark.parametrize("remat", ["selective", "full"])
+def test_dryrun_traced_peak_within_10_percent_of_the_card(dev, remat):
+    """The dry-run's traced peak of a training step (`launch.dryrun.trace_cell`, fake
+    tensors off a mesh, `kernels=False`) within 10% of `max_memory_allocated` of the
+    same step run on the card (PLAN_NOTE in chip_smoke.py): h2o-danube-1.8b at full
+    width and 2 layers, B 1 x S 2048, the state included, after a warm-up step."""
+    from repro_torch.configs.base import ParallelConfig, ShapeSpec, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.parallel.axes import ShardingRules
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config("h2o_danube_1p8b"), num_layers=2)
+    B, S = 1, 2048
+    trace = trace_cell(cfg, ShapeSpec("plan", S, B, "train"), None, ShardingRules(),
+                       policy=(1, remat), log=lambda *_: None)
+    model = Model(cfg, kernels=False)
+    state = {"params": model.init(0, dev, widen_head=False)}
+    state["opt"] = adamw_init(state["params"], TrainConfig())
+    batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.int32, device=dev)
+             for k, v in SyntheticLM(cfg.vocab_size, S, B).batch(0).items()}
+    step = make_train_step(model, ParallelConfig(remat=remat), TrainConfig())
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(dev)
+    assert abs(trace["memory"]["peak_bytes_per_device"] / measured - 1) <= 0.10, \
+        (trace["memory"], measured)

@@ -37,6 +37,24 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_the_planner_and_the_dryrun_are_in_the_walk():
+    """The nine copies of `repro.core`, the dry-run, and the module `chip_smoke.py`'s
+    phase 11 runs in a subprocess (`--auto-plan`) are among the files checked."""
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    files = set(_port_files())
+    core = ROOT / "src" / "repro_torch" / "core"
+    for name in ("hardware", "roofline", "operators", "parallelism", "comm", "memory", "predict",
+                 "planner", "paper_data"):
+        assert core / f"{name}.py" in files, name
+    assert ROOT / "src" / "repro_torch" / "launch" / "dryrun.py" in files
+    module = chip_smoke.AUTO_PLAN[chip_smoke.AUTO_PLAN.index("-m") + 1]
+    assert ROOT / "src" / Path(*module.split(".")).with_suffix(".py") in files
+
+
 def test_the_check_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.models import layers\nimport jax.numpy as jnp\n")

@@ -10,6 +10,7 @@ the logits, greedy tokens identical (`tests/test_system.py`), and every cache
 leaf placed as `Model.cache_pspecs` says.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -90,6 +91,10 @@ CASES = {
     # Mamba2 states on model (by head; the conv state by column), the shared
     # block's cache at each application split over data
     "zamba2-1.2b": (dict(), (2, 2), 7, 5, 16),
+    # two Mamba2 groups that tp 4 does not split: the heads replicated, the SSD
+    # state split by head as JAX's spec places it (stepped on a gathered copy)
+    "zamba2-1.2b groups2": (dict(ssm=dataclasses.replace(get_config("zamba2_1p2b").reduced().ssm,
+                                                         n_groups=2)), (1, 4), 7, 5, 16),
     # one kv head: tp does not divide it, so the cache's length splits over model
     "qwen3-14b kv1": (dict(num_kv_heads=1), (1, 2), 5, 6, 16),
     # RWKV6's states on model by head (no KV cache: nothing splits by length)
