@@ -103,6 +103,14 @@ Phases, each of which fails the run with a non-zero exit:
                model beside phase 7's training runs (step s, peak memory) and
                phase 5's serves (prefill s, decode ms); (c) `launch.train
                --auto-plan` for 8 H100s in a subprocess.
+ 12. sim     - the port's serving simulator beside phase 5's serves (SIM_NOTE):
+               (a) the simulated schedule of each serve's requests equals the
+               engine's (decode steps, admissions, FCFS order, tokens); (b) each
+               config's cache allocated alone grows the allocation by its
+               leaves' bytes, which equal the paper's KV formula; (c) the
+               simulated prefill, decode, tok/s and makespan beside the measured
+               ones; (d) `python -m repro_torch.sim --trace` and `python -m
+               repro_torch.obs report` in subprocesses; (e) one DSE point.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -993,7 +1001,11 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
         f"decode {steps} steps {1e3 * out['decode_seconds'] / max(steps, 1):.3f} ms/step; "
         f"max_memory_allocated {mem / 2**30 if mem else 0:.2f} GiB; launches {launches}")
     return {**{k: v for k, v in out.items() if k != "requests"}, "launches": launches,
-            "admissions": admissions, "full_ring": full_ring}
+            "admissions": admissions, "full_ring": full_ring,
+            # what phase 12 prices: each request's prompt length and tokens, the engine's shape
+            "prompt_lens": [len(r.prompt) for r in done],
+            "out_counts": [len(r.out_tokens) for r in done], "max_new": max_new, "slots": slots,
+            "max_len": max_len}
 
 
 # -------------------------------------------------------------------- phase 6
@@ -2302,6 +2314,199 @@ def phase_auto_plan(root: Path = ROOT, args=AUTO_PLAN, timeout: float = 300.0) -
     return plans
 
 
+# ------------------------------------------------------------------- phase 12
+# SIM_NOTE: phase 12 sets the port's serving simulator (`repro_torch.sim`, a copy of
+# `repro.sim` that CPU tests hold to JAX bit for bit) beside phase 5's nine serves.
+# (a) The schedule, barred: each serve's requests as `SimRequest(i, 0.0, prompt
+# length, max_new)`, simulated under `ServingCostModel(cfg, H100_SXM, tp=1,
+# ctx_quantum=1)` and `SchedConfig(policy="continuous", slots=4)` (the engine's
+# slots), must give the engine's decode steps, one distinct `admitted` time for
+# each of the engine's prefills holding the requests that prefill admitted (so
+# the same FCFS order), and each record's `output` equal to the request's count
+# of `out_tokens`. (b) The KV cache, barred: `Model(cfg).init_cache(slots,
+# max_len)` allocated alone on the card; the growth of `memory_allocated` must be
+# the sum of its leaves' `nbytes`, each rounded up to the caching allocator's
+# 512-byte block, and that sum must be the paper's §3.5 formula
+# (`kv_cache_bytes + recurrent_state_bytes`) exactly; phase 5's peak is printed
+# beside it. (c) The times, printed, not barred: the simulator's prefill seconds
+# an admission are the mean over its admissions of `first_token - admitted` (the
+# admission's iteration: in these serves every request of an admission ends in
+# the same step, so no decode shares it), its decode ms a step the rest of its
+# busy time over its decode steps, its tok/s the summary's (tokens over the
+# makespan); each beside the engine's measured numbers, with measured / simulated.
+# The ratios carry one modelling difference besides the host: the engine
+# prefills all `slots` rows, padded to the longest admitted prompt, where the
+# simulator prices only the admitted prompts, at their own lengths. (d) `python
+# -m repro_torch.sim` with a `--trace`, then `python -m repro_torch.obs report` on
+# the trace, in subprocesses (SIM_CLI): both must exit 0 and print their tables.
+# (e) The paper's technology-node DSE (`core.dse.optimize_node`) for qwen3-14b at
+# N5 with HBM3 and NDR: arithmetic, a model output and not a measurement.
+SIM_DIR = ROOT / "build" / "chip_smoke_sim"
+SIM_CLI = ["-m", "repro_torch.sim", "--config", "qwen3_14b", "--hw", "h100", "--qps", "8",
+           "--requests", "50"]
+ALLOC_BLOCK = 512  # the CUDA caching allocator's block: every allocation is a multiple
+
+
+def _sim_of(cfg, serve: dict):
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.sim import SchedConfig, ServingCostModel, SimRequest, simulate
+
+    reqs = [SimRequest(i, 0.0, n, serve["max_new"]) for i, n in enumerate(serve["prompt_lens"])]
+    return simulate(reqs, ServingCostModel(cfg, H100_SXM, tp=1, ctx_quantum=1),
+                    SchedConfig(policy="continuous", slots=serve["slots"]))
+
+
+def sim_admissions(res) -> list[list[int]]:
+    """The simulator's admissions: the requests of each distinct `admitted` time,
+    in time order, each in its FCFS order."""
+    order = {rid: k for k, rid in enumerate(res.admit_order)}
+    times = sorted({r.admitted for r in res.records})
+    return [sorted((r.rid for r in res.records if r.admitted == t), key=order.__getitem__)
+            for t in times]
+
+
+def phase_sim_schedule(cfg, serve: dict) -> dict:
+    """SIM_NOTE (a) and (c): the simulated schedule against the engine's (barred),
+    and the simulated times beside the measured ones (printed)."""
+    from repro_torch.sim import summarize
+
+    res = _sim_of(cfg, serve)
+    batches = sim_admissions(res)
+    faults = []
+    if res.decode_steps != serve["decode_steps"]:
+        faults.append(f"decode steps {res.decode_steps} simulated, {serve['decode_steps']} run")
+    if len(batches) != serve["admissions"]:
+        faults.append(f"{len(batches)} distinct admitted times, {serve['admissions']} prefills")
+    engine_order = [i for batch in serve["admitted"] for i in batch]
+    if res.admit_order != engine_order or batches != serve["admitted"]:
+        faults.append(f"admissions {batches} (FCFS {res.admit_order}) simulated, "
+                      f"{serve['admitted']} run")
+    outputs = [r.output for r in sorted(res.records, key=lambda r: r.rid)]
+    if outputs != serve["out_counts"]:
+        faults.append(f"outputs {outputs} simulated, tokens {serve['out_counts']} served")
+    if faults:
+        raise AssertionError(f"sim: {cfg.name}'s schedule: " + "; ".join(faults))
+    prefill = [next(r.first_token for r in res.records if r.admitted == t) - t
+               for t in sorted({r.admitted for r in res.records})]
+    sim = {"admissions": len(batches), "decode_steps": res.decode_steps,
+           "prefill_s": sum(prefill) / len(prefill),
+           "decode_ms": 1e3 * (res.busy_s - sum(prefill)) / res.decode_steps,
+           "tok_s": summarize(res)["tokens_per_s"], "makespan_s": res.makespan}
+    measured = {"prefill_s": serve["prefill_seconds"] / max(serve["admissions"], 1),
+                "decode_ms": 1e3 * serve["decode_seconds"] / max(serve["decode_steps"], 1),
+                "tok_s": serve["tokens"] / serve["seconds"], "makespan_s": serve["seconds"]}
+    log(f"[sim] (a) {cfg.name}: the simulated schedule is the engine's: {len(batches)} admissions "
+        f"{batches}, {res.decode_steps} decode steps, outputs {outputs}")
+    return {"sim": sim, "measured": measured}
+
+
+def _leaf_bytes(tree) -> list[int]:
+    if isinstance(tree, dict):
+        return [n for v in tree.values() for n in _leaf_bytes(v)]
+    if isinstance(tree, (tuple, list)):
+        return [n for v in tree for n in _leaf_bytes(v)]
+    return [tree.numel() * tree.element_size()] if isinstance(tree, torch.Tensor) else []
+
+
+def phase_sim_kv(dev, cfg, slots: int, max_len: int, peak, *,
+                 allocated=torch.cuda.memory_allocated) -> dict:
+    """SIM_NOTE (b): the engine's cache allocated alone against its leaves and the
+    §3.5 formula. `allocated(dev)` reads the bytes allocated on `dev` (a CPU
+    rehearsal passes its own count)."""
+    from repro_torch.core.kvcache import kv_cache_bytes, recurrent_state_bytes
+
+    before = allocated(dev)
+    cache = Model(cfg).init_cache(slots, max_len, dev)
+    growth = allocated(dev) - before
+    leaves = _leaf_bytes(cache)
+    del cache
+    total = sum(leaves)
+    blocks = sum(-(-n // ALLOC_BLOCK) * ALLOC_BLOCK for n in leaves)
+    formula = kv_cache_bytes(cfg, slots, max_len) + recurrent_state_bytes(cfg, slots)
+    log(f"[sim] (b) {cfg.name} cache of {slots} slots x {max_len}: allocated {growth} B, "
+        f"{len(leaves)} leaves of {total} B ({blocks} B in {ALLOC_BLOCK}-byte blocks), "
+        f"kv_cache_bytes + recurrent_state_bytes {formula:.0f} B; phase 5's peak "
+        f"{peak or 0} B ({(peak or 0) / 2**30:.2f} GiB, the cache {total / max(peak or 1, 1):.3f} "
+        f"of it)")
+    if growth != blocks:
+        raise AssertionError(f"sim: {cfg.name}'s cache grew the allocation by {growth} B, its "
+                             f"leaves hold {total} B ({blocks} B in blocks)")
+    if total != formula:
+        raise AssertionError(f"sim: {cfg.name}'s cache leaves hold {total} B, the formula "
+                             f"gives {formula} B")
+    return {"allocated": growth, "leaves": total, "formula": formula, "peak": peak}
+
+
+def phase_sim_cli(root: Path = ROOT, args=SIM_CLI, out_dir: Path = SIM_DIR,
+                  timeout: float = 300.0) -> dict:
+    """SIM_NOTE (d): the simulator's and the trace report's command lines, in
+    subprocesses of this Python, with the checkout's `src` on the path alone."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = out_dir / "sim.jsonl"
+
+    def run(cmd: list[str]) -> list[str]:
+        out = subprocess.run([sys.executable, *cmd], cwd=root, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        if out.returncode != 0:
+            raise AssertionError(f"sim: {' '.join(cmd)} exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        return out.stdout.splitlines()
+
+    sim = run([*args, "--trace", str(trace)])
+    policies = [ln for ln in sim if ln.split()[:1] in (["static"], ["continuous"], ["chunked"])]
+    if len(policies) < 3 or not any("throughput-latency sweep" in ln for ln in sim):
+        raise AssertionError(f"sim: the simulator printed no table: {sim[-20:]}")
+    continuous = trace.with_name("sim.continuous.jsonl")
+    report = run(["-m", "repro_torch.obs", "report", str(continuous)])
+    if not any("latency (ms)" in ln for ln in report):
+        raise AssertionError(f"sim: the report printed no table: {report[-20:]}")
+    for ln in sim:
+        log(f"[sim] (d) {ln}")
+    for ln in report:
+        log(f"[sim] (d) report: {ln}")
+    return {"sim": sim, "report": report}
+
+
+def phase_sim_dse(smi: str) -> dict:
+    """SIM_NOTE (e): one point of the paper's technology-node DSE, a model output."""
+    from repro_torch.core.dse import optimize_node
+    from repro_torch.core.parallelism import Mapping
+
+    pt = optimize_node(get_config("qwen3_14b"), "N5", "HBM3", "NDR-x8",
+                       mapping=Mapping(dp=8, tp=1, pp=1, microbatch=1), global_batch=64,
+                       seq=4096)
+    log(f"[sim] (e) model output, not a measurement: optimize_node(qwen3-14b, {pt.node}, "
+        f"{pt.dram}, {pt.net}; dp 8, global batch 64 x 4096): f_core {pt.f_core:.4f}, "
+        f"{pt.flops / 1e12:.1f} TFLOP/s bf16, L2 {pt.l2_capacity / 1e6:.1f} MB, step "
+        f"{pt.time:.4f} s (printed beside {smi}, which it does not describe)")
+    return dataclasses.asdict(pt)
+
+
+def phase_sim(dev, smi: str, serves: dict, configs: dict) -> dict:
+    """SIM_NOTE: phase 12 over phase 5's serves (`configs` {name: config})."""
+    rows = {name: phase_sim_schedule(configs[name], serve) for name, serve in serves.items()}
+    kv = {}
+    for name, serve in serves.items():
+        torch.cuda.empty_cache()
+        kv[name] = phase_sim_kv(dev, configs[name], serve["slots"], serve["max_len"],
+                                serve["max_memory_allocated"])
+    torch.cuda.empty_cache()
+    log(f"[sim] (c) simulated (the port's simulator of an H100-SXM) against measured on "
+        f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev} ({smi}); "
+        "ratio = measured / simulated")
+    log("[sim] (c) config            adm/steps  prefill s/adm: sim, meas, ratio   "
+        "decode ms/step: sim, meas, ratio   tok/s: sim, meas, ratio   makespan s: sim, meas, ratio")
+    for name, r in rows.items():
+        s, m = r["sim"], r["measured"]
+        cells = "   ".join(f"{s[k]:.4f}, {m[k]:.4f}, {m[k] / s[k]:.3f}"
+                           for k in ("prefill_s", "decode_ms", "tok_s", "makespan_s"))
+        log(f"[sim] (c) {name:17s} {s['admissions']}/{s['decode_steps']:<7d} {cells}")
+    cli = phase_sim_cli()
+    dse = phase_sim_dse(smi)
+    return {"schedule": rows, "kv": kv, "cli": cli, "dse": dse}
+
+
 def train_config(arch: str):
     """A training run's config: full width, `layers` deep where TRAIN_RUNS cuts it."""
     cfg = get_config(arch)
@@ -2414,6 +2619,9 @@ def main() -> None:
     phase_plan_model(smi, serves, trains, serve_shapes, train_runs)
     phase_auto_plan()
     t_plan = time.perf_counter() - t_plan
+    t_sim = time.perf_counter()  # phase 12
+    phase_sim(dev, smi, serves, {c.name: c for c, *_ in serve_shapes.values()})
+    t_sim = time.perf_counter() - t_sim
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
@@ -2423,7 +2631,7 @@ def main() -> None:
             f"cp serve {full.name} (1x1)": cp["launches"]}
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
         f"the mesh phase's (a) and (b) {t_mesh:.1f}s, its (c) and (d), the cp serve and the "
-        f"split phases {t_new:.1f}s, and the plan phase {t_plan:.1f}s")
+        f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s and the sim phase {t_sim:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
     # over the serve runs, the training runs and the mesh runs (each rank's)
     sources = {**KERNELS, **TRAIN_KERNELS}

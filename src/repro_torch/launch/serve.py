@@ -34,8 +34,8 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, requests:
     `prompt_len` is a length, or an inclusive (lo, hi) range to draw each
     prompt's length from. Returns the served requests and the run's numbers:
     host seconds of prefill and of decode (each span ends in a device sync),
-    admissions, decode steps, tokens, and the peak device memory where the
-    device is CUDA.
+    admissions (and the request indices each admitted), decode steps, tokens,
+    and the peak device memory where the device is CUDA.
     """
     dev = resolve_device(device)
     model = Model(cfg)
@@ -63,6 +63,7 @@ def run(cfg: ModelConfig, *, device: str | torch.device | None = None, requests:
         "prefill_seconds": engine.prefill_seconds,
         "decode_seconds": engine.decode_seconds,
         "admissions": engine.admissions,
+        "admitted": engine.admitted,
         "decode_steps": engine.decode_steps,
         "tokens": n_tok,
         "prompt_tokens": int(sum(len(r.prompt) for r in done)),

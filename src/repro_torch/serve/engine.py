@@ -54,6 +54,7 @@ class ServeEngine:
         self.gen.manual_seed(seed)
         self.decode_steps = 0  # decode iterations of the last serve() call
         self.admissions = 0  # prefills of the last serve() call
+        self.admitted: list[list[int]] = []  # each prefill's request indices, in order
         # host seconds of the last serve() call, each span ending in a device sync
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
@@ -90,24 +91,28 @@ class ServeEngine:
     def serve(self, requests: list[Request], *, eos: int | None = None) -> list[Request]:
         """Continuous-batching-lite scheduler over a fixed slot count.
 
-        `self.decode_steps` reports the decode iterations of the last call."""
-        pending = list(requests)
+        `self.decode_steps` reports the decode iterations of the last call, and
+        `self.admitted` the indices into `requests` that each prefill admitted."""
+        pending = list(enumerate(requests))
         active: list[Request | None] = [None] * self.slots
         cache = None
         logits_np = None
         self.decode_steps = self.admissions = 0
+        self.admitted = []
         self.prefill_seconds = self.decode_seconds = 0.0
         while pending or any(a is not None for a in active):
-            admit = []
+            admit, indices = [], []
             for s in range(self.slots):
                 if active[s] is None and pending:
-                    active[s] = pending.pop(0)
+                    i, active[s] = pending.pop(0)
                     admit.append(s)
+                    indices.append(i)
             if admit:
                 t0 = time.perf_counter()
                 cache, logits_np = self._admit(admit, active, cache, logits_np)
                 self.prefill_seconds += time.perf_counter() - t0
                 self.admissions += 1
+                self.admitted.append(indices)
             live = [s for s in range(self.slots) if active[s] is not None]
             if not live:
                 break

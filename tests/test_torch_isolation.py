@@ -55,6 +55,27 @@ def test_the_planner_and_the_dryrun_are_in_the_walk():
     assert ROOT / "src" / Path(*module.split(".")).with_suffix(".py") in files
 
 
+def test_the_simulator_and_obs_are_in_the_walk():
+    """The KV model, the DSE, and every module of JAX's `sim` and `obs` packages
+    have their copy in the port, and each copy is among the files checked, as is
+    the module `chip_smoke.py`'s phase 12 runs in a subprocess."""
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    files = set(_port_files())
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "core" / "kvcache.py", port / "core" / "dse.py"} <= files
+    for pkg in ("sim", "obs"):
+        names = sorted(p.name for p in (ROOT / "src" / "repro" / pkg).glob("*.py"))
+        assert len(names) >= 7, pkg
+        for name in names:
+            assert port / pkg / name in files, f"{pkg}/{name}"
+    module = chip_smoke.SIM_CLI[chip_smoke.SIM_CLI.index("-m") + 1]
+    assert ROOT / "src" / Path(*module.split(".")) / "__main__.py" in files
+
+
 def test_the_check_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.models import layers\nimport jax.numpy as jnp\n")

@@ -33,11 +33,13 @@ CPU = torch.device("cpu")
 
 class LiveBytes(TorchDispatchMode):
     """The bytes of the real storages alive and their peak: what the dry-run's tracer
-    counts on fake tensors, on real ones."""
+    counts on fake tensors, on real ones; with `block`, each storage rounded up to a
+    multiple of it, as the card's caching allocator rounds each allocation."""
 
-    def __init__(self):
+    def __init__(self, block: int = 1):
         super().__init__()
         self.live = self.peak = 0
+        self.block = block
         self._seen = {}
 
     def _free(self, key, n):
@@ -49,7 +51,7 @@ class LiveBytes(TorchDispatchMode):
             if isinstance(t, torch.Tensor):
                 st = t.untyped_storage()
                 if id(st) not in self._seen:
-                    n = st.nbytes()
+                    n = -(-st.nbytes() // self.block) * self.block
                     self.live += n
                     self.peak = max(self.peak, self.live)
                     self._seen[id(st)] = weakref.finalize(st, self._free, id(st), n)
