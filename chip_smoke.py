@@ -111,6 +111,18 @@ Phases, each of which fails the run with a non-zero exit:
                simulated prefill, decode, tok/s and makespan beside the measured
                ones; (d) `python -m repro_torch.sim --trace` and `python -m
                repro_torch.obs report` in subprocesses; (e) one DSE point.
+ 13. cluster - the port's cluster simulator beside the card (CLUSTER_NOTE):
+               (a) a two-replica fleet of h2o-danube-1.8b at full width and
+               depth, 12 requests, each replica served by an engine of its own:
+               its schedule equals the simulated replica's; (b) a prefill's
+               cache handed to a NaN-filled one for qwen3-14b, h2o-danube,
+               zamba2-1.2b and rwkv6-7b: the bytes copied are the cluster's
+               `kv_handoff_bytes`, and 16 decode steps from the copy equal the
+               source's bit for bit; (c) the simulated times beside the
+               measured ones, the copy beside the cluster's p2p price, and the
+               disaggregated fleet's transfer volume (12 x the handoff's); (d)
+               `python -m repro_torch.cluster` (with a trace and `--plan`) and
+               `python -m repro_torch.obs report` in subprocesses.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -159,7 +171,7 @@ from repro_torch.models.params import _walk, distribute, layer_params, param_def
 from repro_torch.parallel.axes import (lse_combine, make_rules, placements,  # noqa: E402
                                        sanitize_pspec, use_mesh)
 from repro_torch.models.transformer import (AUX_KEYS, Model, _apply_mamba_layer,  # noqa: E402
-                                            _apply_rwkv_layer, saved_record)
+                                            _apply_rwkv_layer, cache_leaves, saved_record)
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.train.tree import paths  # noqa: E402
@@ -952,6 +964,30 @@ def attention_blocks(cfg) -> int:
     return 0 if model.is_rwkv else cfg.num_layers
 
 
+def check_serve_launches(cfg, launches: dict, admissions: int, steps: int,
+                         what: str = "serve") -> None:
+    """Every kernel of a config's serve path launched, and no other: flash attention
+    once an attention block an admission, decode attention once an attention block
+    a decode step (`attention_blocks`)."""
+    used = used_kernels(cfg)
+    missing = [k for k in used if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched on the main path: {missing}")
+    stray = [k for k, n in launches.items() if n and k not in used]
+    if stray:
+        raise AssertionError(f"{what}: {cfg.name} launched kernels off its path: {stray}")
+    if not used:
+        log(f"[{what}] {cfg.name}: no kernel on its path (the {cfg.family} family runs plain "
+            f"PyTorch, as in JAX): the empty set, every count 0: {launches}")
+    blocks = attention_blocks(cfg)
+    if (launches["decode_attention"], launches["flash_attention"]) != (blocks * steps,
+                                                                       blocks * admissions):
+        raise AssertionError(f"{what}: {launches['flash_attention']} flash and "
+                             f"{launches['decode_attention']} decode-attention launches in "
+                             f"{admissions} admissions and {steps} decode steps of {blocks} "
+                             "attention blocks")
+
+
 def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_new=32,
                 max_len=2048, seed=0) -> dict:
     """Serve `requests` seeded prompts through `launch.serve.run` at the config's
@@ -967,24 +1003,8 @@ def phase_serve(dev, cfg, *, requests=8, slots=4, prompt_len=(900, 1100), max_ne
         raise AssertionError("serve: not every request finished with its tokens")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
         raise AssertionError("serve: token out of the vocabulary")
-    used = used_kernels(cfg)
-    missing = [k for k in used if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
-    stray = [k for k, n in launches.items() if n and k not in used]
-    if stray:
-        raise AssertionError(f"serve: {cfg.name} launched kernels off its path: {stray}")
-    if not used:
-        log(f"[serve] {cfg.name}: no kernel on its path (the {cfg.family} family runs plain "
-            f"PyTorch, as in JAX): the empty set, every count 0: {launches}")
     steps, admissions = out["decode_steps"], out["admissions"]
-    blocks = attention_blocks(cfg)
-    if (launches["decode_attention"], launches["flash_attention"]) != (blocks * steps,
-                                                                       blocks * admissions):
-        raise AssertionError(f"serve: {launches['flash_attention']} flash and "
-                             f"{launches['decode_attention']} decode-attention launches in "
-                             f"{admissions} admissions and {steps} decode steps of {blocks} "
-                             "attention blocks")
+    check_serve_launches(cfg, launches, admissions, steps)
     mem = out["max_memory_allocated"]
     shortest = min(len(r.prompt) for r in done)
     # every prompt past the window: each admission prefills past it, and each
@@ -2365,39 +2385,58 @@ def sim_admissions(res) -> list[list[int]]:
             for t in times]
 
 
-def phase_sim_schedule(cfg, serve: dict) -> dict:
-    """SIM_NOTE (a) and (c): the simulated schedule against the engine's (barred),
-    and the simulated times beside the measured ones (printed)."""
-    from repro_torch.sim import summarize
-
-    res = _sim_of(cfg, serve)
+def schedule_faults(res, serve: dict, rids=None) -> list[str]:
+    """How a simulated schedule `res` differs from an engine's run `serve` (its decode
+    steps, `admitted` batches of request indices, FCFS order and tokens a request);
+    `rids[i]` is the engine's request i's rid in `res` (i itself where None)."""
+    rid_of = list(range(len(serve["out_counts"]))) if rids is None else list(rids)
     batches = sim_admissions(res)
+    run = [[rid_of[i] for i in batch] for batch in serve["admitted"]]
     faults = []
     if res.decode_steps != serve["decode_steps"]:
         faults.append(f"decode steps {res.decode_steps} simulated, {serve['decode_steps']} run")
     if len(batches) != serve["admissions"]:
         faults.append(f"{len(batches)} distinct admitted times, {serve['admissions']} prefills")
-    engine_order = [i for batch in serve["admitted"] for i in batch]
-    if res.admit_order != engine_order or batches != serve["admitted"]:
-        faults.append(f"admissions {batches} (FCFS {res.admit_order}) simulated, "
-                      f"{serve['admitted']} run")
+    if res.admit_order != [i for batch in run for i in batch] or batches != run:
+        faults.append(f"admissions {batches} (FCFS {res.admit_order}) simulated, {run} run")
     outputs = [r.output for r in sorted(res.records, key=lambda r: r.rid)]
-    if outputs != serve["out_counts"]:
-        faults.append(f"outputs {outputs} simulated, tokens {serve['out_counts']} served")
+    served = [n for _, n in sorted(zip(rid_of, serve["out_counts"]))]
+    if outputs != served:
+        faults.append(f"outputs {outputs} simulated, tokens {served} served")
+    return faults
+
+
+def sim_numbers(res) -> dict:
+    """SIM_NOTE (c)'s simulated numbers of one replica's run."""
+    from repro_torch.sim import summarize
+
+    times = sorted({r.admitted for r in res.records})
+    prefill = [next(r.first_token for r in res.records if r.admitted == t) - t for t in times]
+    return {"admissions": len(times), "decode_steps": res.decode_steps,
+            "prefill_s": sum(prefill) / len(prefill),
+            "decode_ms": 1e3 * (res.busy_s - sum(prefill)) / res.decode_steps,
+            "tok_s": summarize(res)["tokens_per_s"], "makespan_s": res.makespan}
+
+
+def measured_numbers(serve: dict) -> dict:
+    """The same numbers, measured by the engine on its host clock."""
+    return {"prefill_s": serve["prefill_seconds"] / max(serve["admissions"], 1),
+            "decode_ms": 1e3 * serve["decode_seconds"] / max(serve["decode_steps"], 1),
+            "tok_s": serve["tokens"] / serve["seconds"], "makespan_s": serve["seconds"]}
+
+
+def phase_sim_schedule(cfg, serve: dict) -> dict:
+    """SIM_NOTE (a) and (c): the simulated schedule against the engine's (barred),
+    and the simulated times beside the measured ones (printed)."""
+    res = _sim_of(cfg, serve)
+    faults = schedule_faults(res, serve)
     if faults:
         raise AssertionError(f"sim: {cfg.name}'s schedule: " + "; ".join(faults))
-    prefill = [next(r.first_token for r in res.records if r.admitted == t) - t
-               for t in sorted({r.admitted for r in res.records})]
-    sim = {"admissions": len(batches), "decode_steps": res.decode_steps,
-           "prefill_s": sum(prefill) / len(prefill),
-           "decode_ms": 1e3 * (res.busy_s - sum(prefill)) / res.decode_steps,
-           "tok_s": summarize(res)["tokens_per_s"], "makespan_s": res.makespan}
-    measured = {"prefill_s": serve["prefill_seconds"] / max(serve["admissions"], 1),
-                "decode_ms": 1e3 * serve["decode_seconds"] / max(serve["decode_steps"], 1),
-                "tok_s": serve["tokens"] / serve["seconds"], "makespan_s": serve["seconds"]}
+    batches = sim_admissions(res)
+    outputs = [r.output for r in sorted(res.records, key=lambda r: r.rid)]
     log(f"[sim] (a) {cfg.name}: the simulated schedule is the engine's: {len(batches)} admissions "
         f"{batches}, {res.decode_steps} decode steps, outputs {outputs}")
-    return {"sim": sim, "measured": measured}
+    return {"sim": sim_numbers(res), "measured": measured_numbers(serve)}
 
 
 def _leaf_bytes(tree) -> list[int]:
@@ -2505,6 +2544,314 @@ def phase_sim(dev, smi: str, serves: dict, configs: dict) -> dict:
     cli = phase_sim_cli()
     dse = phase_sim_dse(smi)
     return {"schedule": rows, "kv": kv, "cli": cli, "dse": dse}
+
+
+# ------------------------------------------------------------------- phase 13
+# CLUSTER_NOTE: phase 13 sets the port's cluster simulator (`repro_torch.cluster`, a
+# copy of `repro.cluster` that CPU tests hold to JAX bit for bit) beside the card.
+# (a) A colocated fleet, barred: h2o-danube-1.8b at full width and depth and
+# CLUSTER_FLEET's 12 requests (from `default_rng(seed)`: each prompt's length, then
+# each request's new tokens, then each prompt's tokens, in rid order), all arriving
+# at 0, simulated over two replicas of `ReplicaSpec("h100", ctx_quantum=1,
+# sched=SchedConfig("continuous", slots=2))` under `ClusterSpec(router="jsq")`. With
+# every arrival at 0, round_robin, jsq and least_kv route alike (rid i to replica
+# i mod 2), so one router runs here; the CPU tests cover the rest. Each replica's
+# requests (those `assignments` sends it), in rid order, are then served by a
+# `ServeEngine` of its own (2 slots, max_len 8192, its own cache; the params made
+# once and shared); the replicas take turns on the one card. Each serve must pass
+# phase 5's launch checks, and its decode steps, admissions (the engine's request
+# indices mapped back to rids, so the FCFS order too) and tokens a request must be
+# those of `replica_results[i]`. (b) The disaggregated handoff, barred, for
+# HANDOFF's four configs at full width and depth on a batch of one: `Model.prefill`
+# fills the prefill replica's cache P; `init_cache` allocates the decode replica's
+# cache D, filled with NaN; only P's live state is copied into D, leaf by leaf
+# (`cache_leaves`): an attention leaf's first min(prompt, W) positions, on the axis
+# after its slot axis (W its extent: the ring, for a window), every Mamba2, RWKV6
+# and shift leaf whole, and `pos`. The bytes copied must be exactly the volume the
+# cluster moves, `ServingCostModel(cfg, H100_SXM, tp=1, ctx_quantum=1).
+# kv_handoff_bytes(prompt)`; then HANDOFF_STEPS greedy decode steps from D and from
+# P, through the kernels, must give the same tokens and the same logits bit for
+# bit. The NaN fill shows that a resumed decode reads nothing past what the formula
+# counts. The fleet's 12 requests simulated disaggregated (one prefill and one
+# decode replica, 2 slots each) must move 12 x danube's handoff bytes (`xfer_bytes`:
+# every prompt passes the window, so each moves the whole ring). (c) Printed, not
+# barred: each replica's simulated prefill s an admission, decode ms a step, tok/s
+# and makespan beside its measured ones (SIM_NOTE's definitions), with measured /
+# simulated; the fleet's simulated makespan beside the longer replica's wall (on
+# two cards the replicas would run at once; here they take turns); each handoff's
+# copy time (CUDA events around the copies, HBM to HBM on one card) beside its
+# bound (the bytes read and written over HBM) and the cluster's price of the same
+# bytes, `comm.p2p` over NVLink4 (`H100_SXM.net[0]`) and over NDR-IB (`net[-1]`, the
+# level `simulate_cluster` prices when `xfer_net` is None): a copy inside one card
+# is not the link the model prices; and the disaggregated fleet's `xfer_seconds`.
+# (d) `python -m repro_torch.cluster` with a `--trace`, `python -m repro_torch.obs
+# report` on its colocated trace, and the cluster CLI's `--plan`, in subprocesses
+# (CLUSTER_CLI, CLUSTER_PLAN): each must exit 0 and print its table.
+CLUSTER_FLEET = dict(requests=12, prompt_len=(4200, 4600), max_new=(8, 40), replicas=2, slots=2,
+                     max_len=8192)
+# each handoff's prompt: phase 5's first (`launch.serve.run`'s first draw at the seed,
+# 1070 tokens at seed 0) in the config's vocabulary, or, for danube, (a)'s first
+# (4541 tokens at seed 0, past its 4096 window); and the engine's max_len
+HANDOFF = {"qwen3_14b": dict(prompt_len=(900, 1100), max_len=2048),
+           "h2o_danube_1p8b": dict(prompt_len=None, max_len=8192),
+           "zamba2_1p2b": dict(prompt_len=(900, 1100), max_len=2048),
+           "rwkv6_7b": dict(prompt_len=(900, 1100), max_len=2048)}
+HANDOFF_STEPS = 16
+CLUSTER_DIR = ROOT / "build" / "chip_smoke_cluster"
+CLUSTER_CLI = ["-m", "repro_torch.cluster", "--config", "qwen3_14b", "--hw", "h100",
+               "--replicas", "4", "--qps", "32"]
+CLUSTER_PLAN = ["-m", "repro_torch.cluster", "--config", "qwen3_14b", "--hw", "h100", "--qps",
+                "32", "--plan"]
+
+
+def cluster_traffic(cfg, seed: int, *, requests=12, prompt_len=(4200, 4600), max_new=(8, 40)):
+    """CLUSTER_NOTE (a)'s requests: (prompt lengths, new tokens, prompts)."""
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(prompt_len[0], prompt_len[1] + 1, size=requests)]
+    news = [int(m) for m in rng.integers(max_new[0], max_new[1] + 1, size=requests)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    return lens, news, prompts
+
+
+def simulate_fleet(cfg, lens: list[int], news: list[int], pools, slots: int, router="jsq"):
+    """The port's cluster simulator over requests all arriving at 0, one replica a pool
+    entry, each an H100 at tp 1, `ctx_quantum` 1, continuous batching."""
+    from repro_torch.cluster import ClusterSpec, ReplicaSpec, simulate_cluster
+    from repro_torch.sim import SchedConfig, SimRequest
+
+    reqs = [SimRequest(i, 0.0, n, m) for i, (n, m) in enumerate(zip(lens, news))]
+    sched = SchedConfig(policy="continuous", slots=slots)
+    replicas = tuple(ReplicaSpec("h100", pool=p, ctx_quantum=1, sched=sched) for p in pools)
+    return simulate_cluster(reqs, cfg, ClusterSpec(replicas=replicas, router=router))
+
+
+def phase_cluster_fleet(dev, cfg, *, seed=0, requests=12, prompt_len=(4200, 4600),
+                        max_new=(8, 40), replicas=2, slots=2, max_len=8192) -> dict:
+    """CLUSTER_NOTE (a): each replica of the simulated fleet served by an engine of its
+    own; its schedule must be the simulated one."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    lens, news, prompts = cluster_traffic(cfg, seed, requests=requests, prompt_len=prompt_len,
+                                          max_new=max_new)
+    cres = simulate_fleet(cfg, lens, news, ["mixed"] * replicas, slots)
+    model = Model(cfg)
+    params = model.init(seed, dev)
+    rows, served_rids = [], []
+    for i, res in enumerate(cres.replica_results):
+        rids = sorted(rid for rid, (rep, _) in cres.assignments.items() if rep == i)
+        engine = ServeEngine(model, params, max_len=max_len, slots=slots, seed=seed)
+        reqs = [Request(prompt=prompts[r], max_new_tokens=news[r]) for r in rids]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        done = engine.serve(reqs)  # ends in a copy of the logits to the host
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check_serve_launches(cfg, launches, engine.admissions, engine.decode_steps,
+                             what="cluster")
+        served = {"decode_steps": engine.decode_steps, "admissions": engine.admissions,
+                  "admitted": engine.admitted, "out_counts": [len(r.out_tokens) for r in done],
+                  "prefill_seconds": engine.prefill_seconds,
+                  "decode_seconds": engine.decode_seconds,
+                  "tokens": sum(len(r.out_tokens) for r in done), "seconds": seconds}
+        faults = schedule_faults(res, served, rids)
+        if sorted(r.rid for r in res.records) != rids:
+            faults.append(f"replica {i} simulated rids {sorted(r.rid for r in res.records)}, "
+                          f"assigned {rids}")
+        if not all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+            faults.append("a token out of the vocabulary")
+        if faults:
+            raise AssertionError(f"cluster: replica {i}'s schedule: " + "; ".join(faults))
+        served_rids += rids
+        batches = sim_admissions(res)
+        log(f"[cluster] (a) {cfg.name} replica {i}: rids {rids} served as simulated: admissions "
+            f"{batches}, {res.decode_steps} decode steps, tokens {served['out_counts']}; "
+            f"{seconds:.3f} s; launches {launches}")
+        rows.append({"rids": rids, "admitted": batches, "launches": launches,
+                     "sim": sim_numbers(res), "measured": measured_numbers(served)})
+    if sorted(served_rids) != list(range(requests)):
+        raise AssertionError(f"cluster: rids served {sorted(served_rids)}")
+    del params
+    return {"rows": rows, "makespan_s": cres.makespan, "lens": lens, "news": news,
+            "prompts": prompts}
+
+
+def handoff_copy(P: dict, D: dict, prompt: int) -> int:
+    """Copy the live state of cache P into cache D, leaf by leaf (CLUSTER_NOTE (b)):
+    an attention leaf's first min(prompt, W) positions, every other leaf whole, and
+    `pos`. Returns the bytes copied."""
+    dst = {path: t for path, t, _ in cache_leaves(D)}
+    nbytes = 0
+    for path, src, axis in cache_leaves(P):
+        if path.rsplit("/", 1)[-1] in ("k", "v"):
+            n = min(prompt, src.shape[axis + 1])
+            src = src.narrow(axis + 1, 0, n)
+            dst[path].narrow(axis + 1, 0, n).copy_(src)
+        else:
+            dst[path].copy_(src)
+        nbytes += src.numel() * src.element_size()
+    D["pos"] = P["pos"]
+    return nbytes
+
+
+def _greedy_from(model, params, logits, cache, steps: int):
+    toks, outs = [], []
+    for _ in range(steps):
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        logits, cache = model.decode_step(params, cache, tok)
+        toks.append(tok)
+        outs.append(logits)
+    return torch.cat(toks, 1), torch.stack(outs)
+
+
+def handoff_prompt(cfg, seed: int, prompt_len) -> np.ndarray:
+    """HANDOFF's prompt: `launch.serve.run`'s first draw (its length, then its tokens),
+    or (a)'s first prompt where `prompt_len` is None."""
+    if prompt_len is None:
+        return cluster_traffic(cfg, seed, **{k: CLUSTER_FLEET[k] for k in
+                                             ("requests", "prompt_len", "max_new")})[2][0]
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+    return rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+
+
+def phase_cluster_handoff(dev, cfg, toks: np.ndarray, max_len: int, *, steps=HANDOFF_STEPS,
+                          seed=0) -> dict:
+    """CLUSTER_NOTE (b): a prefill's cache handed to a NaN-filled one; the bytes are
+    `kv_handoff_bytes`, and the decode from the copy is the source's, bit for bit."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.sim import ServingCostModel
+
+    model = Model(cfg)
+    params = model.init(seed, dev)
+    prompt = len(toks)
+    build.reset_launches()
+    logits, P = model.prefill(params, {"tokens": torch.from_numpy(toks[None]).to(dev)}, max_len)
+    D = model.init_cache(1, max_len, dev)
+    for _, t, _ in cache_leaves(D):
+        t.fill_(float("nan"))
+    if dev.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        nbytes = handoff_copy(P, D, prompt)
+        end.record()
+        torch.cuda.synchronize(dev)
+        copy_ms = start.elapsed_time(end)
+    else:
+        t0 = time.perf_counter()
+        nbytes = handoff_copy(P, D, prompt)
+        copy_ms = 1e3 * (time.perf_counter() - t0)
+    formula = ServingCostModel(cfg, H100_SXM, tp=1, ctx_quantum=1).kv_handoff_bytes(prompt)
+    tok_d, out_d = _greedy_from(model, params, logits, D, steps)
+    tok_p, out_p = _greedy_from(model, params, logits, P, steps)
+    launches = dict(build.LAUNCHES)
+    del params, P, D
+    check_serve_launches(cfg, launches, 1, 2 * steps, what="cluster")
+    faults = []
+    if nbytes != formula:
+        faults.append(f"{nbytes} B copied, kv_handoff_bytes gives {formula:.0f} B")
+    if not torch.isfinite(out_d).all():
+        faults.append("the decode from the handed-off cache read a NaN")
+    if not torch.equal(tok_d, tok_p):
+        faults.append(f"tokens {tok_d.tolist()} from the copy, {tok_p.tolist()} from the source")
+    elif not torch.equal(out_d, out_p):
+        faults.append(f"logits differ by {(out_d - out_p).abs().max().item():.3e} over {steps} "
+                      "steps")
+    if faults:
+        raise AssertionError(f"cluster: {cfg.name}'s handoff: " + "; ".join(faults))
+    log(f"[cluster] (b) {cfg.name}: prompt {prompt}, max_len {max_len}: {nbytes} B copied = "
+        f"kv_handoff_bytes; {steps} greedy steps from the NaN-filled copy equal the source's bit "
+        f"for bit (tokens {tok_d[0].tolist()}); copy {copy_ms:.4f} ms; launches {launches}")
+    return {"bytes": nbytes, "copy_ms": copy_ms, "prompt": prompt, "launches": launches}
+
+
+def phase_cluster_cli(root: Path = ROOT, args=CLUSTER_CLI, plan=CLUSTER_PLAN,
+                      out_dir: Path = CLUSTER_DIR, timeout: float = 300.0) -> dict:
+    """CLUSTER_NOTE (d): the cluster's and the trace report's command lines, in
+    subprocesses of this Python, with the checkout's `src` on the path alone."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = out_dir / "cl.jsonl"
+
+    def run(cmd: list[str]) -> list[str]:
+        out = subprocess.run([sys.executable, *cmd], cwd=root, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        if out.returncode != 0:
+            raise AssertionError(f"cluster: {' '.join(cmd)} exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        return out.stdout.splitlines()
+
+    fleet = run([*args, "--trace", str(trace)])
+    if not any(ln.startswith("colocated") for ln in fleet) or \
+            not any(ln.startswith("disagg") for ln in fleet):
+        raise AssertionError(f"cluster: the cluster CLI printed no table: {fleet[-20:]}")
+    report = run(["-m", "repro_torch.obs", "report", str(trace.with_name("cl.colocated.jsonl"))])
+    if not any("latency (ms)" in ln for ln in report):
+        raise AssertionError(f"cluster: the report printed no table: {report[-20:]}")
+    planned = run(plan)
+    if not any(ln.startswith("# cheapest feasible") for ln in planned):
+        raise AssertionError(f"cluster: --plan printed no plan: {planned[-20:]}")
+    for name, lines in (("cluster", fleet), ("report", report), ("plan", planned)):
+        for ln in lines:
+            log(f"[cluster] (d) {name}: {ln}")
+    return {"cluster": fleet, "report": report, "plan": planned}
+
+
+def phase_cluster_disagg(cfg, lens: list[int], news: list[int], handoff: int, slots: int):
+    """CLUSTER_NOTE (b)'s last bar: the fleet's requests simulated disaggregated move
+    one handoff of `handoff` bytes each (every prompt past the window)."""
+    disagg = simulate_fleet(cfg, lens, news, ["prefill", "decode"], slots)
+    moved = len(lens) * handoff
+    if (disagg.xfer_count, disagg.xfer_bytes) != (len(lens), moved):
+        raise AssertionError(f"cluster: the disaggregated fleet moved {disagg.xfer_count} caches "
+                             f"of {disagg.xfer_bytes:.0f} B, the handoff gives {moved} B")
+    return disagg
+
+
+def phase_cluster(dev, smi: str, *, seed=0) -> dict:
+    """CLUSTER_NOTE: phase 13."""
+    from repro_torch.core import comm
+    from repro_torch.core.hardware import H100_SXM
+
+    danube = get_config("h2o_danube_1p8b")
+    fleet = phase_cluster_fleet(dev, danube, seed=seed, **CLUSTER_FLEET)
+    torch.cuda.empty_cache()
+    handoffs = {}
+    for arch, shape in HANDOFF.items():
+        cfg = get_config(arch)
+        handoffs[cfg.name] = phase_cluster_handoff(
+            dev, cfg, handoff_prompt(cfg, seed, shape["prompt_len"]), shape["max_len"], seed=seed)
+        torch.cuda.empty_cache()
+    disagg = phase_cluster_disagg(danube, fleet["lens"], fleet["news"],
+                                  handoffs[danube.name]["bytes"], CLUSTER_FLEET["slots"])
+    card = torch.cuda.get_device_name(0) if dev.type == "cuda" else dev
+    log(f"[cluster] (c) simulated (the port's cluster simulator of H100-SXM replicas) against "
+        f"measured on {card} ({smi}); ratio = measured / simulated")
+    log("[cluster] (c) replica  adm/steps  prefill s/adm: sim, meas, ratio   decode ms/step: "
+        "sim, meas, ratio   tok/s: sim, meas, ratio   makespan s: sim, meas, ratio")
+    for i, r in enumerate(fleet["rows"]):
+        s, m = r["sim"], r["measured"]
+        cells = "   ".join(f"{s[k]:.4f}, {m[k]:.4f}, {m[k] / s[k]:.3f}"
+                           for k in ("prefill_s", "decode_ms", "tok_s", "makespan_s"))
+        log(f"[cluster] (c) {i:7d}  {s['admissions']}/{s['decode_steps']:<7d} {cells}")
+    walls = [r["measured"]["makespan_s"] for r in fleet["rows"]]
+    log(f"[cluster] (c) fleet makespan: simulated {fleet['makespan_s']:.4f} s (the replicas at "
+        f"once, on two cards); measured {max(walls):.4f} s the longer replica, {sum(walls):.4f} s "
+        f"both (here they take turns on one card)")
+    nets = (H100_SXM.net[0], H100_SXM.net[-1])
+    for name, h in handoffs.items():
+        priced = ", ".join(f"{net.name} {1e3 * comm.p2p(h['bytes'], net):.4f} ms" for net in nets)
+        log(f"[cluster] (c) handoff {name}: {h['bytes']} B, copy {h['copy_ms']:.4f} ms HBM to HBM "
+            f"on one card (bound {1e3 * 2 * h['bytes'] / HBM:.4f} ms at 3.35 TB/s read + write); "
+            f"the cluster prices it at {priced} (a link between cards, not this copy)")
+    log(f"[cluster] (c) disaggregated {danube.name} fleet (1 prefill + 1 decode replica, "
+        f"{CLUSTER_FLEET['slots']} slots): {disagg.xfer_count} moves, {disagg.xfer_bytes:.0f} B "
+        f"= {len(fleet['lens'])} x the handoff's bytes, {disagg.xfer_seconds:.6f} s of transfer "
+        f"(NDR-IB), makespan {disagg.makespan:.4f} s")
+    cli = phase_cluster_cli()
+    return {"fleet": fleet, "handoffs": handoffs, "disagg": {
+        "xfer_count": disagg.xfer_count, "xfer_bytes": disagg.xfer_bytes,
+        "xfer_seconds": disagg.xfer_seconds, "makespan_s": disagg.makespan}, "cli": cli}
 
 
 def train_config(arch: str):
@@ -2622,18 +2969,26 @@ def main() -> None:
     t_sim = time.perf_counter()  # phase 12
     phase_sim(dev, smi, serves, {c.name: c for c, *_ in serve_shapes.values()})
     t_sim = time.perf_counter() - t_sim
+    t_cluster = time.perf_counter()  # phase 13
+    cluster = phase_cluster(dev, smi, seed=args.seed)
+    t_cluster = time.perf_counter() - t_cluster
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
             **{f"mesh {danube.name} (1x{len(ranks)}) rank {i}": r["launches"] for i, r in enumerate(ranks)},
             f"mesh {zamba2.name} (1x1, sequence parallel)": mesh_c["launches"],
             f"mesh {rwkv.name} L{rwkv.num_layers} (1x1, sequence parallel)": mesh_d["launches"],
-            f"cp serve {full.name} (1x1)": cp["launches"]}
+            f"cp serve {full.name} (1x1)": cp["launches"],
+            **{f"cluster (a) h2o-danube-1.8b replica {i}": r["launches"]
+               for i, r in enumerate(cluster["fleet"]["rows"])},
+            **{f"cluster (b) handoff {c}": h["launches"] for c, h in cluster["handoffs"].items()}}
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
         f"the mesh phase's (a) and (b) {t_mesh:.1f}s, its (c) and (d), the cp serve and the "
-        f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s and the sim phase {t_sim:.1f}s")
+        f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s, the sim phase {t_sim:.1f}s "
+        f"and the cluster phase {t_cluster:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
-    # over the serve runs, the training runs and the mesh runs (each rank's)
+    # over the serve runs, the training runs, the mesh runs (each rank's) and the
+    # cluster phase's replicas and handoffs
     sources = {**KERNELS, **TRAIN_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],

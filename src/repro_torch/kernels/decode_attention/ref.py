@@ -9,7 +9,13 @@ NEG_INF = -1e30
 
 def decode_attention_ref(q, k, v, n_valid: int, *, scale: float | None = None, lse: bool = False):
     """q: (B, Hkv, G, dh); k/v: (B, Hkv, T, dh); slots >= n_valid are masked. With
-    `lse`, also the log-sum-exp of the scaled scores, (B, Hkv, G) float32."""
+    `lse`, also the log-sum-exp of the scaled scores, (B, Hkv, G) float32.
+
+    Slots at or past n_valid are never read, as the kernel reads none: they may
+    hold anything, NaN included (a masked slot's weight is 0, and 0 x NaN is NaN),
+    as the cache of a decode resumed from a handed-off prefix does."""
+    if 0 < n_valid < k.shape[2]:
+        k, v = k[:, :, :n_valid], v[:, :, :n_valid]
     dh = q.shape[-1]
     scale = dh**-0.5 if scale is None else scale
     s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * scale

@@ -8,7 +8,7 @@ normalized by makespan.
 
 `summarize_records` aggregates any collection of `ReqRecord`s — one
 replica's, one pool's, or a whole cluster's stitched records — so
-`repro_torch.sim` and the cluster simulator (`repro.cluster`, not ported yet)
+`repro_torch.sim` and the cluster simulator (`repro_torch.cluster`)
 report the same vocabulary at every level.
 Percentile keys and interpolation come from `repro_torch.obs.quantiles`
 (`PCTS` = p50/p95/p99/p99.9, numpy linear interpolation), the same

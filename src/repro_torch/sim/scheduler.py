@@ -42,7 +42,7 @@ KV (`cached`/`generated`), which is how prefix-cache hits and
 disaggregated prefill->decode handoffs enter mid-stream — and `step()`
 executes exactly one engine iteration, returning the records that
 finished in it. `simulate()` is the run-to-completion driver over one
-replica; a cluster simulator (`repro.cluster`, not ported yet) interleaves
+replica; a cluster simulator (`repro_torch.cluster`) interleaves
 many replicas on a shared timeline.
 
 A copy of `repro.sim.scheduler` (the port imports nothing of the JAX package);

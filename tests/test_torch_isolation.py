@@ -76,6 +76,24 @@ def test_the_simulator_and_obs_are_in_the_walk():
     assert ROOT / "src" / Path(*module.split(".")) / "__main__.py" in files
 
 
+def test_the_cluster_is_in_the_walk():
+    """Every module of JAX's `cluster` package has its copy in the port, and each
+    copy is among the files checked, as is the module `chip_smoke.py`'s phase 13
+    runs in a subprocess."""
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    files = set(_port_files())
+    names = sorted(p.name for p in (ROOT / "src" / "repro" / "cluster").glob("*.py"))
+    assert len(names) == 8
+    for name in names:
+        assert ROOT / "src" / "repro_torch" / "cluster" / name in files, name
+    module = chip_smoke.CLUSTER_CLI[chip_smoke.CLUSTER_CLI.index("-m") + 1]
+    assert ROOT / "src" / Path(*module.split(".")) / "__main__.py" in files
+
+
 def test_the_check_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.models import layers\nimport jax.numpy as jnp\n")

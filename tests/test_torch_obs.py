@@ -7,13 +7,13 @@ Chrome and CSV exports, `analyze`/`render`, the SLO monitor online and in
 JAX's output for the same events; and both command lines (`python -m
 repro_torch.sim`, `python -m repro_torch.obs`) must print what JAX's print.
 
-Left for the slice that ports `repro.cluster`: the cases of JAX's
+Here the traces come from the single-replica simulator. The cases of JAX's
 `tests/test_obs.py` and `tests/test_monitor.py` that trace a cluster (the golden
 digests of the colocated, disaggregated and autoscaled fleets, the Chrome
 export's replica tracks, `summarize_cluster` from a trace, billing extents, the
-prefix-cache wiring, monitored fleets), and the cluster half of
-`tests/test_engine_parity.py`. Here the traces come from the single-replica
-simulator, which emits the same schema.
+prefix-cache wiring, monitored fleets, the cluster CLI and its golden) are in
+`tests/test_torch_cluster_obs.py`, and the cluster half of
+`tests/test_engine_parity.py` in `tests/test_torch_cluster_parity.py`.
 """
 
 from dataclasses import asdict
