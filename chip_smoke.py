@@ -123,6 +123,13 @@ Phases, each of which fails the run with a non-zero exit:
                disaggregated fleet's transfer volume (12 x the handoff's); (d)
                `python -m repro_torch.cluster` (with a trace and `--plan`) and
                `python -m repro_torch.obs report` in subprocesses.
+ 14. cost    - the linter, the cell cost and the collective inventory (COST_NOTE):
+               (a) `python -m repro_torch.lint` and its `--list-rules` in
+               subprocesses: the gate exits 0 and lists 11 rules; (b)
+               `core.cellcost.cell_cost` for the H100 beside phase 7's runs,
+               phase 5's serves and phase 11 (a)'s cell; (c) a 2-layer
+               h2o-danube training step on a one-rank NCCL mesh under
+               `CollectiveInventory`, equal to the dry-run's trace of the cell.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -2854,6 +2861,160 @@ def phase_cluster(dev, smi: str, *, seed=0) -> dict:
         "xfer_seconds": disagg.xfer_seconds, "makespan_s": disagg.makespan}, "cli": cli}
 
 
+# ------------------------------------------------------------------- phase 14
+# COST_NOTE: phase 14 runs the last three modules of the port: the linter, the cell
+# cost and the collective inventory. (a) `python -m repro_torch.lint` (the gate over
+# `src/repro_torch/` against `lint_baseline_torch.json`) and `python -m
+# repro_torch.lint --list-rules` in subprocesses of this Python: the gate must exit 0
+# and print its clean line, the catalog must list 11 rules. (b)
+# `core.cellcost.cell_cost(cfg, shape, dp=1, tp=1, hw=H100_SXM)` (the analytic op
+# graph's flops and DRAM bytes of a step) of phase 7's four training runs
+# (`ShapeSpec(name, S, B, "train")`, rwkv6-7b with `opt_8bit`), of each of phase 5's
+# serves as a prefill cell (its 4 slots x the mean prompt) and a decode cell (4
+# slots, ctx the mean prompt + half the new tokens), and of phase 11 (a)'s cell
+# (h2o-danube at 2 layers, B 2 x S 6144); each printed with flops / 989e12 and
+# bytes / 3.35e12 (the card's bf16 peak and HBM rate) beside the measured step s,
+# prefill s an admission or decode ms a step, and for phase 11 (a)'s cell the
+# trace's flops and MFU_NOTE's; printed, not barred. (c) Phase 11 (a)'s cell traced
+# by `launch.dryrun.trace_cell` on a fake world of one rank, mesh (data 1, model 1),
+# then one training step of it executed by `launch.dryrun.execute_cell` (the
+# trace's state, seeded; its policy and step; the kernels on) on phase 8's one-rank
+# NCCL mesh, both under `rules_for(mesh, shape)` and a `CollectiveInventory`: the
+# two inventories must be equal, kind by kind in count and bytes (on one rank every
+# redistribution is a no-op, so both may be zero, and zero must equal zero); the
+# step's loss finite and every kernel of the training path launched. The CPU tests
+# hold the same equality on (data 2, model 2) gloo processes
+# (`tests/test_torch_cellcost_hlo.py`).
+LINT_GATE = ["-m", "repro_torch.lint"]
+LINT_RULES = 11
+COST_CELL = dict(layers=2, batch=2, seq=6144, remat="selective")
+
+
+def phase_lint(root: Path = ROOT, timeout: float = 300.0) -> list[str]:
+    """COST_NOTE (a): the lint gate and the rule catalog in subprocesses; returns the
+    rule codes."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+
+    def run(*extra):
+        return subprocess.run([sys.executable, *LINT_GATE, *extra], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=timeout)
+
+    gate = run()
+    if gate.returncode != 0 or "repro_torch.lint: clean" not in gate.stdout:
+        raise AssertionError(f"cost: the lint gate exited {gate.returncode}: "
+                             f"{(gate.stdout + gate.stderr)[-2000:]}")
+    rules = run("--list-rules")
+    codes = re.findall(r"^([A-Z]\d{3}) ", rules.stdout, re.M)
+    if rules.returncode != 0 or len(codes) != LINT_RULES:
+        raise AssertionError(f"cost: --list-rules exited {rules.returncode} with {len(codes)} "
+                             f"rules: {(rules.stdout + rules.stderr)[-2000:]}")
+    log(f"[cost] (a) {gate.stdout.strip().splitlines()[-1]}; --list-rules: {len(codes)} rules "
+        f"({', '.join(codes)})")
+    return codes
+
+
+def phase_cost(smi: str, serves: dict, trains: dict, serve_shapes: dict, train_runs: dict,
+               plan: dict, plan_cfg) -> dict:
+    """COST_NOTE (b): the H100 cell cost beside the measured numbers. `serve_shapes`
+    and `train_runs` as `phase_plan_model`'s; `plan` phase 11 (a)'s result, of
+    `plan_cfg` at COST_CELL's shape."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.cellcost import cell_cost
+    from repro_torch.core.hardware import H100_SXM
+
+    rows = {}
+
+    def price(label, cfg, shape, measured: dict, opt_8bit=False):
+        c = cell_cost(cfg, shape, dp=1, tp=1, opt_8bit=opt_8bit, hw=H100_SXM)
+        row = rows[label] = {"flops": c.flops_per_device, "dram_bytes": c.dram_bytes_per_device,
+                             "compute_s": c.flops_per_device / PEAK_BF16,
+                             "memory_s": c.dram_bytes_per_device / HBM, **measured}
+        beside = ", ".join(f"{k} {v:.6g}" for k, v in measured.items())
+        log(f"[cost] (b) {label} B{shape.global_batch} x S{shape.seq_len}: {row['flops']:.6e} flops, "
+            f"{row['dram_bytes']:.6e} DRAM B; flops / 989e12 {row['compute_s']:.6f} s, "
+            f"bytes / 3.35e12 {row['memory_s']:.6f} s; {beside} ({smi})")
+
+    for name, (cfg, run) in train_runs.items():
+        price(f"train {name}", cfg, ShapeSpec(name, run["seq"], run["batch"], "train"),
+              {"measured step s": trains[name]["step_s"]}, run.get("optimizer") == "adamw8bit")
+    for name, (cfg, slots, prompt, new) in serve_shapes.items():
+        r = serves[name]
+        price(f"prefill {name}", cfg, ShapeSpec(name, prompt, slots, "prefill"),
+              {"measured prefill s an admission": r["prefill_seconds"] / max(r["admissions"], 1)})
+        price(f"decode {name}", cfg, ShapeSpec(name, prompt + new // 2, slots, "decode"),
+              {"measured decode ms a step": 1e3 * r["decode_seconds"] / max(r["decode_steps"], 1)})
+    shape = ShapeSpec("plan", COST_CELL["seq"], COST_CELL["batch"], "train")
+    price(f"train {plan_cfg.name} L{plan_cfg.num_layers}", plan_cfg, shape,
+          {"traced flops": float(plan["flops"]), "MFU_NOTE flops": float(plan["model_flops"])})
+    return rows
+
+
+def _inventory_kinds(summary: dict) -> dict:
+    """{kind: (count, bytes)} of an inventory's summary: every kind of
+    `COLLECTIVE_KINDS`, zero where none ran, and any other kind it holds."""
+    from repro_torch.core.hlo import COLLECTIVE_KINDS
+
+    out = {k: (0, 0) for k in COLLECTIVE_KINDS}
+    for a in summary["ops"]:
+        c, b = out.get(a["kind"], (0, 0))
+        out[a["kind"]] = (c + a["count"], b + a["bytes"])
+    return out
+
+
+def phase_inventory(dev, smi: str, *, cfg=None, layers=2, batch=2, seq=6144, remat="selective",
+                    backend="nccl", init_method=None, seed=0) -> dict:
+    """COST_NOTE (c): `cfg` (h2o-danube-1.8b's) cut to `layers`, traced on a fake
+    one-rank world and executed on a one-rank `backend` mesh, both inventoried; the
+    two must be equal. Returns both summaries, the executed step's host seconds (one
+    step under the inventory's dispatch mode, the first of its model: no step time)
+    and its launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import execute_cell, init_fake_world, trace_cell
+
+    cfg = dataclasses.replace(cfg or get_config("h2o_danube_1p8b"), num_layers=layers)
+    shape = ShapeSpec("inventory", seq, batch, "train")
+    init_fake_world(1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        traced = trace_cell(cfg, shape, mesh, rules_for(mesh, shape), policy=(1, remat),
+                            log=lambda *_: None)
+    finally:
+        dist.destroy_process_group()
+    _one_rank_group(backend, init_method)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = execute_cell(cfg, shape, mesh, rules_for(mesh, shape), device=dev, policy=(1, remat),
+                           kernels=True, seed=seed)
+        if dev.type == "cuda":
+            sync()
+        step_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    ours, theirs = _inventory_kinds(out["collectives"]), _inventory_kinds(traced["collectives"])
+    same = out["collectives"] == traced["collectives"]
+    loss = out["metrics"]["loss"]
+    log(f"[cost] (c) {cfg.name} L{layers} B{batch} x S{seq}, remat {remat}, kind: (count, bytes): "
+        f"the step executed on a one-rank {backend} mesh (data 1, model 1) {ours}; the dry-run's "
+        f"trace on a fake one-rank world {theirs}: {'equal' if same else 'DIFFERENT'}; loss "
+        f"{loss:.5f}; {step_s:.3f} s on the host clock, the model's first step, under the "
+        f"inventory ({smi})")
+    if not same:
+        raise AssertionError(f"cost: the executed step's collectives {out['collectives']} != "
+                             f"the trace's {traced['collectives']}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"cost: the executed step's loss is {loss}")
+    missing = [k for k in train_kernels(cfg) if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"cost (c): kernels never launched on the main path: {missing}")
+    return {"executed": out["collectives"], "traced": traced["collectives"], "step_s": step_s,
+            "launches": launches}
+
+
 def train_config(arch: str):
     """A training run's config: full width, `layers` deep where TRAIN_RUNS cuts it."""
     cfg = get_config(arch)
@@ -2956,7 +3117,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t_new = time.perf_counter() - t_new
     t_plan = time.perf_counter()  # phase 11
-    phase_plan_memory(dev, smi, **PLAN_MEM)
+    plan = phase_plan_memory(dev, smi, **PLAN_MEM)
     torch.cuda.empty_cache()
     serve_shapes = {full.name: (full, 4, 1000, 32)}  # phase_serve's defaults
     for arch, traffic in SERVE_TRAFFIC.items():
@@ -2972,6 +3133,13 @@ def main() -> None:
     t_cluster = time.perf_counter()  # phase 13
     cluster = phase_cluster(dev, smi, seed=args.seed)
     t_cluster = time.perf_counter() - t_cluster
+    t_cost = time.perf_counter()  # phase 14
+    phase_lint()
+    danube2 = dataclasses.replace(danube, num_layers=COST_CELL["layers"])
+    phase_cost(smi, serves, trains, serve_shapes, train_runs, plan, danube2)
+    inventory = phase_inventory(dev, smi, seed=args.seed, **COST_CELL)
+    torch.cuda.empty_cache()
+    t_cost = time.perf_counter() - t_cost
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
@@ -2981,14 +3149,15 @@ def main() -> None:
             f"cp serve {full.name} (1x1)": cp["launches"],
             **{f"cluster (a) h2o-danube-1.8b replica {i}": r["launches"]
                for i, r in enumerate(cluster["fleet"]["rows"])},
-            **{f"cluster (b) handoff {c}": h["launches"] for c, h in cluster["handoffs"].items()}}
+            **{f"cluster (b) handoff {c}": h["launches"] for c, h in cluster["handoffs"].items()},
+            f"cost (c) {danube2.name} L{danube2.num_layers} (1x1)": inventory["launches"]}
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
         f"the mesh phase's (a) and (b) {t_mesh:.1f}s, its (c) and (d), the cp serve and the "
-        f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s, the sim phase {t_sim:.1f}s "
-        f"and the cluster phase {t_cluster:.1f}s")
+        f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s, the sim phase {t_sim:.1f}s, "
+        f"the cluster phase {t_cluster:.1f}s and the cost phase {t_cost:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
-    # over the serve runs, the training runs, the mesh runs (each rank's) and the
-    # cluster phase's replicas and handoffs
+    # over the serve runs, the training runs, the mesh runs (each rank's), the
+    # cluster phase's replicas and handoffs and the cost phase's step
     sources = {**KERNELS, **TRAIN_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],

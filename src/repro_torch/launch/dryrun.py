@@ -24,8 +24,10 @@ instead, with real Python and no data:
     `cost_analysis()`) and tracks the bytes of live storages, whose peak
     stands for JAX's `memory_analysis()`; what DTensor runs on global-shape
     stand-ins to propagate an op's sharding is left out;
-  * `CommDebugMode` counts the collectives by op (JAX's HLO collective
-    summary).
+  * `CollectiveInventory` (`core/hlo.py`) records each collective this rank
+    dispatches, with the bytes of its result, in the shape of JAX's HLO
+    `collective_summary`. `execute_cell` runs the same step for real on a
+    process group under the same inventory, to hold the trace to it.
 
 Each cell runs the model with `kernels=False`, the config's own `attn_impl`,
 as JAX's dry-run lowers the full configs through its jnp attention rather
@@ -54,12 +56,12 @@ import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS, SHAPES, applicable, get_config, input_specs
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeSpec, TrainConfig
+from repro_torch.core.hlo import CollectiveInventory
 from repro_torch.launch.mesh import make_production_mesh, rules_for
 from repro_torch.models.params import param_defs, param_shapes
 from repro_torch.models.transformer import Model
@@ -121,6 +123,8 @@ class StepTracer(FakeTensorMode):
             if not isinstance(t, torch.Tensor) or t.device.type == "meta":
                 continue
             st = t.untyped_storage()
+            # lint: disable-next=D104 -- identity map of the live storages: keys are
+            # only looked up, never iterated or ordered
             key = id(st)
             if key in self._freed:
                 continue
@@ -301,6 +305,30 @@ def build_state(model: Model, shape: ShapeSpec, mesh, tcfg: TrainConfig | None =
     return out
 
 
+def _cell_policy(cfg: ModelConfig, shape: ShapeSpec, over: dict, policy, log):
+    """(TrainConfig, (microbatches, remat)) of a train cell under the current rules:
+    `over`'s optimizer, and `policy` or `pick_train_policy`'s; (None, None) else."""
+    if shape.kind != "train":
+        return None, None
+    tcfg = TrainConfig(**{k: v for k, v in over.items() if k not in ("remat", "microbatches_floor")})
+    policy = tuple(policy or pick_train_policy(cfg, shape, over))
+    log(f"    [policy] {cfg.name}/{shape.name}: microbatches={policy[0]} remat={policy[1]}")
+    return tcfg, policy
+
+
+def _run_step(model: Model, shape: ShapeSpec, state: dict, tcfg, policy, cp: bool):
+    """The cell's step on `state` (consumed): a train step (ZeRO-1, `policy`), the
+    prefill or a decode step."""
+    params, batch = state.pop("params"), state.pop("batch")
+    if shape.kind == "train":
+        step = make_train_step(model, ParallelConfig(microbatches=policy[0], remat=policy[1],
+                                                     zero1=True), tcfg)
+        return step({"params": params, "opt": state.pop("opt")}, batch)[1]
+    if shape.kind == "prefill":
+        return model.prefill(params, batch, max_len=shape.seq_len, cp=cp)
+    return model.decode_step(params, state.pop("cache"), batch["tokens"], cp=cp)
+
+
 def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules, *, policy=None,
                over: dict | None = None, log=print) -> dict:
     """Trace one step of `cfg` at `shape` on `mesh` (None: off a mesh) under `rules`.
@@ -310,44 +338,79 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules, *, policy=None,
     `pick_train_policy`'s), the prefill or a decode step, with `kernels=False`.
     Returns the trace: trace_s, memory (param, opt, cache bytes of this rank,
     peak_bytes_per_device: the tracked peak with the state and the batch
-    included), cost (flops_per_device), collectives (counts by op) and, for a
-    train cell, the policy.
+    included), cost (flops_per_device), collectives (`CollectiveInventory`'s
+    summary, JAX's `collective_summary` shape: ops by kind with count and bytes,
+    once_bytes, loop_bytes_per_iter, n_ops) and, for a train cell, the policy.
     """
     over = dict(over or {})
     model = Model(cfg, kernels=False)
     tracer = StepTracer()
-    comm = CommDebugMode()
+    inventory = CollectiveInventory()
     t0 = time.perf_counter()
     out: dict = {}
     with use_mesh(mesh, rules), tracer, tracer.quiet_dtensor_meta():
         cp = bool(rules.cp)
-        tcfg = None
-        if shape.kind == "train":
-            tcfg = TrainConfig(
-                **{k: v for k, v in over.items() if k not in ("remat", "microbatches_floor")})
-            n_micro, remat = policy or pick_train_policy(cfg, shape, over)
-            out["policy"] = {"microbatches": n_micro, "remat": remat}
-            log(f"    [policy] {cfg.name}/{shape.name}: microbatches={n_micro} remat={remat}")
+        tcfg, policy = _cell_policy(cfg, shape, over, policy, log)
+        if policy is not None:
+            out["policy"] = {"microbatches": policy[0], "remat": policy[1]}
         state = build_state(model, shape, mesh, tcfg, cp)
         mem = {"param_bytes": local_bytes(state["params"]),
                "opt_bytes": local_bytes(state.get("opt")),
                "cache_bytes": local_bytes(state.get("cache"))}
         tracer.track(state)
         tracer.reset_peak()
-        params, batch = state.pop("params"), state.pop("batch")
-        with comm:
-            if shape.kind == "train":
-                step = make_train_step(model, ParallelConfig(remat=remat, microbatches=n_micro,
-                                                             zero1=True), tcfg)
-                step({"params": params, "opt": state.pop("opt")}, batch)
-            elif shape.kind == "prefill":
-                model.prefill(params, batch, max_len=shape.seq_len, cp=cp)
-            else:
-                model.decode_step(params, state.pop("cache"), batch["tokens"], cp=cp)
+        with inventory:
+            _run_step(model, shape, state, tcfg, policy, cp)
     mem["peak_bytes_per_device"] = tracer.peak
     out.update(trace_s=round(time.perf_counter() - t0, 1), memory=mem,
-               cost={"flops_per_device": tracer.flops},
-               collectives={str(k): v for k, v in comm.get_comm_counts().items()})
+               cost={"flops_per_device": tracer.flops}, collectives=inventory.summary())
+    return out
+
+
+def _fill(state: dict, vocab: int, seed: int) -> None:
+    """Seeded values for `build_state`'s empty tensors, drawn on the host in the
+    tree's order, so that every rank draws the same for the same local shape: the
+    params N(0, 0.02), the batch's token ids in the vocabulary, the rest (moments,
+    a cache) zero."""
+    g = torch.Generator().manual_seed(seed)
+    for part, tree in state.items():
+        for t in tree_leaves(tree):
+            if isinstance(t, DTensor):
+                t = t._local_tensor
+            if not isinstance(t, torch.Tensor):
+                continue
+            if part == "params" and t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=g) * 0.02)
+            elif part == "batch" and not t.is_floating_point():
+                t.copy_(torch.randint(0, vocab, t.shape, generator=g))
+            elif part == "batch":
+                t.copy_(torch.randn(t.shape, generator=g))
+            else:
+                t.zero_()
+
+
+def execute_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules, *, device, policy=None,
+                 kernels: bool = False, seed: int = 0) -> dict:
+    """`trace_cell`'s step run for real: the same state (`build_state`, this rank's
+    shards on `device`, seeded by `_fill`), policy and step on `mesh`, a process
+    group of real ranks, under `rules`, with `kernels` as given. Returns
+    collectives (`CollectiveInventory`'s summary, as `trace_cell`'s), the ops
+    themselves and, for a train cell, the step's metrics."""
+    model = Model(cfg, kernels=kernels)
+    inventory = CollectiveInventory()
+    out: dict = {}
+    with use_mesh(mesh, rules):
+        cp = bool(rules.cp)
+        tcfg, policy = _cell_policy(cfg, shape, {}, policy, lambda *_: None)
+        with torch.device(device):
+            state = build_state(model, shape, mesh, tcfg, cp)
+        _fill(state, cfg.vocab_size, seed)
+        with inventory:
+            result = _run_step(model, shape, state, tcfg, policy, cp)
+    if shape.kind == "train":
+        out["metrics"] = {k: float(v.full_tensor() if isinstance(v, DTensor) else v)
+                          for k, v in result.items()}
+    out.update(collectives=inventory.summary(), ops=inventory.ops)
     return out
 
 

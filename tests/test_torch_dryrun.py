@@ -202,7 +202,7 @@ def test_every_placement_follows_jax_specs(arch, mesh, fake_world):
 
 def test_full_size_decode_cell_traces(fake_world):
     """qwen3-14b decode_32k on the one-pod production mesh (16 x 16 of a fake world of
-    256 ranks): ok, this rank's cache a 256th of the whole, collectives counted."""
+    256 ranks): ok, this rank's cache a 256th of the whole, collectives inventoried."""
     fake_world(256)
     trace, mesh, model = dryrun.lower_cell("qwen3_14b", "decode_32k", False)
     assert tuple(mesh.shape) == (16, 16) and mesh.device_type == "cpu"
@@ -212,7 +212,9 @@ def test_full_size_decode_cell_traces(fake_world):
     assert mem["cache_bytes"] == whole // 256
     assert mem["param_bytes"] < model.param_count() * 2 / 8  # sharded over tp
     assert mem["peak_bytes_per_device"] >= mem["param_bytes"] + mem["cache_bytes"]
-    assert trace["cost"]["flops_per_device"] > 0 and trace["collectives"]
+    assert trace["cost"]["flops_per_device"] > 0
+    colls = trace["collectives"]
+    assert colls["n_ops"] > 0 and colls["once_bytes"] > 0
 
 
 def test_sweep_resumes_and_records_errors(tmp_path, monkeypatch, capsys):
@@ -226,7 +228,7 @@ def test_sweep_resumes_and_records_errors(tmp_path, monkeypatch, capsys):
             raise RuntimeError("boom")
         trace = {"trace_s": 0.0, "memory": {"param_bytes": 1, "peak_bytes_per_device": 3},
                  "cost": {"flops_per_device": 2},
-                 "collectives": {}}
+                 "collectives": {"ops": [], "once_bytes": 0, "loop_bytes_per_iter": 0, "n_ops": 0}}
         return trace, None, Model(tconfigs.get_config(arch), kernels=False)
 
     monkeypatch.setattr(dryrun, "lower_cell", lower)

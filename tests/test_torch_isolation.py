@@ -94,6 +94,26 @@ def test_the_cluster_is_in_the_walk():
     assert ROOT / "src" / Path(*module.split(".")) / "__main__.py" in files
 
 
+def test_every_module_of_repro_has_its_counterpart_in_the_walk():
+    """Each module of `src/repro/` has a counterpart at the same path under
+    `src/repro_torch/` (the linter, `core/cellcost.py` and `core/hlo.py` the last of
+    them), and each is among the files checked, as is the module `chip_smoke.py`'s
+    phase 14 runs in a subprocess."""
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    files = set(_port_files())
+    jax_modules = sorted((ROOT / "src" / "repro").rglob("*.py"))
+    assert len(jax_modules) > 90
+    missing = [str(p.relative_to(ROOT / "src" / "repro")) for p in jax_modules
+               if ROOT / "src" / "repro_torch" / p.relative_to(ROOT / "src" / "repro") not in files]
+    assert missing == []
+    module = chip_smoke.LINT_GATE[chip_smoke.LINT_GATE.index("-m") + 1]
+    assert ROOT / "src" / Path(*module.split(".")) / "__main__.py" in files
+
+
 def test_the_check_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.models import layers\nimport jax.numpy as jnp\n")
