@@ -130,6 +130,13 @@ Phases, each of which fails the run with a non-zero exit:
                phase 5's serves and phase 11 (a)'s cell; (c) a 2-layer
                h2o-danube training step on a one-rank NCCL mesh under
                `CollectiveInventory`, equal to the dry-run's trace of the cell.
+ 15. vocab   - the vocab-parallel CE a tp mesh runs (VOCAB_NOTE): minitron-8b's
+               head at full width on one chunk, its logits cut into 16 vocab
+               blocks on a leading dim, each through the mesh path's local
+               function and joined by its combine, against the CE over the
+               whole vocabulary (loss, nll sum, hits, argmax with a planted tie
+               across two blocks, the gradients of x and the head); the peak
+               memory of one block's forward and backward beside the whole's.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -177,6 +184,7 @@ from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.models.params import _walk, distribute, layer_params, param_defs  # noqa: E402
 from repro_torch.parallel.axes import (lse_combine, make_rules, placements,  # noqa: E402
                                        sanitize_pspec, use_mesh)
+from repro_torch.models.layers import VocabParallelCE, chunk_ce, lm_logits  # noqa: E402
 from repro_torch.models.transformer import (AUX_KEYS, Model, _apply_mamba_layer,  # noqa: E402
                                             _apply_rwkv_layer, cache_leaves, saved_record)
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
@@ -3022,6 +3030,122 @@ def train_config(arch: str):
     return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
 
 
+# ------------------------------------------------------------------ phase 15
+# VOCAB_NOTE: phase 15 holds the vocab-parallel CE on the card (ROADMAP C12): the
+# CE a rank of a tp mesh runs on its block of a chunk's logits, (B, chunk, V / tp),
+# the log-sum-exp, gold logit and argmax of each block (`layers.ce_parts`, the
+# local function the mesh path runs) joined by `axes.ce_combine` inside
+# `layers.VocabParallelCE`, whose backward is the softmax minus the label's
+# one-hot on each block alone. One card is tp 1, so the blocks lie on a leading
+# dim, where the combine reduces instead of all-reducing over tp. The cell:
+# minitron-8b's head at full width (d 4096, V 256000, seeded bf16 weights), one
+# chunk x (2, 2048, 4096) in bf16, its float32 logits cut into 16 blocks (a
+# tp-16 rank's share), labels drawn over the vocabulary with an eighth of them -1
+# and a quarter the whole's argmax. Held to the CE off a mesh over the whole
+# vocabulary (`layers.chunk_ce`, what `Model._chunk_loss` runs at tp 1): loss and
+# nll sum within VOCAB_TOL relative, hits and every token's argmax equal, and
+# the gradients with respect to x and the head (float32 copies of them are the
+# leaves) within VOCAB_TOL relative (max abs difference over max abs). A planted
+# tie straddles two blocks: token (0, 0) is 8 times a one-hot row and the head
+# holds 2 in that row at two columns of neighbouring blocks (3 and 4), so both
+# logits are exactly 16, the largest; its label is the lower column, which the
+# combine must pick as torch.argmax does. `max_memory_allocated` of one block's
+# forward and backward (its own product x @ w_block, as a rank computes it) is
+# printed beside the whole's: the card's reading of what a tp-16 rank's CE holds.
+# VOCAB_TOL: the blocks' log-sum-exps joined in float32 differ from the whole's in
+# rounding (~1e-7 relative), and each gradient sums the same 4096 softmax rows in
+# another order; the bar leaves a hundred times that.
+VOCAB_SPLIT = dict(d=4096, vocab=256000, batch=2, chunk=2048, blocks=16)
+VOCAB_TOL = 1e-5
+
+
+def _whole_ce(xf, wf, y):
+    """(per-token nll, argmax) over the whole vocabulary, as off a mesh."""
+    return chunk_ce(lm_logits({"w": wf}, xf, torch.float32), y)
+
+
+def _split_ce(blocks: int):
+    """(per-token nll, argmax) of the same logits cut into `blocks` vocab blocks on a
+    leading dim, joined by the vocab-parallel CE's combine."""
+    def fn(xf, wf, y):
+        logits = lm_logits({"w": wf}, xf, torch.float32)
+        Vb = logits.shape[-1] // blocks
+        parts = logits.unflatten(-1, (blocks, Vb)).movedim(-2, 0)
+        v0 = torch.arange(blocks, device=y.device)[:, None, None] * Vb
+        return VocabParallelCE.apply(parts, y, v0, None, ())
+    return fn
+
+
+def _ce_run(fn, x, w, y) -> dict:
+    """Loss, nll sum, hits, argmax and the gradients of float32 copies of x and w."""
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    nll, arg = fn(xf, wf, y)
+    valid = (y >= 0).float()
+    tot, n = (nll * valid).sum(), valid.sum()
+    (tot / n).backward()
+    return {"loss": (tot / n).item(), "nll": tot.item(),
+            "hits": int(((arg == y).float() * valid).sum().item()), "arg": arg,
+            "dx": xf.grad, "dw": wf.grad}
+
+
+def _peak_gib(fn) -> float:
+    """`max_memory_allocated` over what was allocated before, in GiB, of `fn()`."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    sync()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_vocab_split(dev, smi: str, *, d=4096, vocab=256000, batch=2, chunk=2048, blocks=16,
+                      seed=0, memory=True) -> dict:
+    """VOCAB_NOTE: the vocab-parallel CE's blocks and combine against the whole-vocab
+    CE at minitron-8b's head; the memory of one block beside the whole's."""
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+    Vb = vocab // blocks
+    x = _randn(rng, (batch, chunk, d), bf, dev)
+    w = _randn(rng, (d, vocab), bf, dev) * 0.02
+    k, lo, hi = 7, 3 * Vb + 5, 4 * Vb + 7  # the planted tie: columns of blocks 3 and 4
+    x[0, 0] = 0.0
+    x[0, 0, k] = 8.0
+    w[k, lo] = w[k, hi] = 2.0
+    with torch.no_grad():
+        top = lm_logits({"w": w}, x, torch.float32).argmax(-1)
+    y = torch.from_numpy(rng.integers(0, vocab, (batch, chunk))).to(dev)
+    pick = torch.from_numpy(rng.random((batch, chunk))).to(dev)
+    y = torch.where(pick < 0.25, top, torch.where(pick > 0.875, -1, y))
+    y[0, 0] = lo
+    whole = _ce_run(_whole_ce, x, w, y)
+    split = _ce_run(_split_ce(blocks), x, w, y)
+    rel = {key: abs(split[key] - whole[key]) / abs(whole[key]) for key in ("loss", "nll")}
+    rel.update({key: _err(split[key], whole[key]) / whole[key].abs().max().item()
+                for key in ("dx", "dw")})
+    wrong = int((split["arg"] != whole["arg"]).sum().item())
+    log(f"[vocab] head (d {d}, V {vocab}) on x ({batch}, {chunk}, {d}) bf16, the "
+        f"vocab in {blocks} blocks of {Vb}: loss {split['loss']:.6f} vs whole {whole['loss']:.6f}; "
+        f"relative error loss {rel['loss']:.3e}, nll sum {rel['nll']:.3e}, dx {rel['dx']:.3e}, "
+        f"d head {rel['dw']:.3e} (tol {VOCAB_TOL:g}); hits {split['hits']} vs {whole['hits']}; "
+        f"argmax differs at {wrong} of {batch * chunk} tokens; the planted tie at columns "
+        f"{lo} and {hi}: whole {int(whole['arg'][0, 0])}, split {int(split['arg'][0, 0])}")
+    if not (max(rel.values()) <= VOCAB_TOL and split["hits"] == whole["hits"] and not wrong
+            and int(whole["arg"][0, 0]) == lo == int(split["arg"][0, 0])):
+        raise AssertionError(f"vocab: the split CE differs from the whole: {rel}, hits "
+                             f"{split['hits']} vs {whole['hits']}, {wrong} argmax differ")
+    out = {**rel, "hits": split["hits"], "tokens": batch * chunk}
+    del whole, split
+    if memory:
+        wb = w[:, :Vb].contiguous()
+        block = _split_ce(1)
+        out["block_gib"] = _peak_gib(lambda: _ce_run(block, x, wb, y))
+        out["whole_gib"] = _peak_gib(lambda: _ce_run(_whole_ce, x, w, y))
+        log(f"[vocab] max_memory_allocated of a forward and backward: one block (x @ w[:, :{Vb}]) "
+            f"{out['block_gib']:.3f} GiB, the whole vocabulary {out['whole_gib']:.3f} GiB "
+            f"(ratio {out['whole_gib'] / out['block_gib']:.2f}); {smi}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3140,6 +3264,10 @@ def main() -> None:
     inventory = phase_inventory(dev, smi, seed=args.seed, **COST_CELL)
     torch.cuda.empty_cache()
     t_cost = time.perf_counter() - t_cost
+    t_vocab = time.perf_counter()  # phase 15
+    phase_vocab_split(dev, smi, seed=args.seed, **VOCAB_SPLIT)
+    torch.cuda.empty_cache()
+    t_vocab = time.perf_counter() - t_vocab
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
@@ -3154,7 +3282,8 @@ def main() -> None:
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
         f"the mesh phase's (a) and (b) {t_mesh:.1f}s, its (c) and (d), the cp serve and the "
         f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s, the sim phase {t_sim:.1f}s, "
-        f"the cluster phase {t_cluster:.1f}s and the cost phase {t_cost:.1f}s")
+        f"the cluster phase {t_cluster:.1f}s, the cost phase {t_cost:.1f}s and the vocab "
+        f"phase {t_vocab:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
     # over the serve runs, the training runs, the mesh runs (each rank's), the
     # cluster phase's replicas and handoffs and the cost phase's step

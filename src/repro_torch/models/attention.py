@@ -9,10 +9,15 @@ are held to on the card. `self_attention` (training) chooses its path as
 JAX's does; see there. On a mesh the heads shard over tp: the qk-norms,
 RoPE and the attention core run on each rank's local heads (`on_shards`),
 and the output projection's partial sums meet in JAX's `shard(out, "dp",
-"sp", None)`. A KV cache on a mesh is placed per `cache_axes` (JAX's): its
-kv heads on tp where tp divides them, its length on cp (and on tp where the
-heads do not divide); decode then runs the kernel on each rank's slots and
-joins the ranks' partial outputs by their log-sum-exps (`lse_combine`).
+"sp", None)`. Where tp does not divide the kv heads, training and prefill pad
+them with zero heads to a multiple of tp, as GSPMD pads JAX's head split
+(`kv_heads_split`): each rank holds ceil(Hkv / tp) kv heads with their G
+query heads, and runs the projections on those heads' columns of the
+weights; decode, whose q is one token, keeps them whole. A KV cache on a
+mesh is placed per `cache_axes` (JAX's): its kv heads on tp where tp divides
+them, its length on cp (and on tp where the heads do not divide); decode
+then runs the kernel on each rank's slots and joins the ranks' partial
+outputs by their log-sum-exps (`lse_combine`).
 
 Caches keep JAX's layout, (B, W, Hkv, dh), so parity tests compare like with
 like; the kernels read them through strides. Unlike JAX, which returns new
@@ -31,8 +36,8 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.flash_vjp import flash_attention_vjp
 from repro_torch.models.layers import apply_rope, rms_head_norm
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.parallel.axes import (axes_size, is_dtensor, logical_spec, lse_combine, on_shards,
-                                       shard, zeros)
+from repro_torch.parallel.axes import (axes_size, is_dtensor, logical_spec, lse_combine, on_local,
+                                       on_shards, shard, shard_range, zeros)
 
 NEG_INF = -1e30
 
@@ -44,24 +49,55 @@ def _head_norm(scale: torch.Tensor, x: torch.Tensor, kernels: bool) -> torch.Ten
     return on_shards(lambda t, s: rms_head_norm(s, t), x, params=(scale,))
 
 
-def _heads(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, H: int) -> torch.Tensor:
-    """x @ w as (B, S, H, dh). On a mesh the heads stay sharded over tp only where tp
-    divides the kv heads, as q, k and v must be split alike (GSPMD pads the rest)."""
+def kv_heads_split(cfg: ModelConfig, x: torch.Tensor) -> int:
+    """The kv heads that q, k and v are split into over tp on a mesh: Hkv, padded with
+    zero heads to a multiple of tp where tp does not divide it, as GSPMD pads JAX's
+    `shard(q, "dp", None, "tp", None, None)`, so that each rank holds ceil(Hkv / tp)
+    kv heads with their G query heads; Hkv off a mesh."""
+    Hkv = cfg.num_kv_heads
+    if not is_dtensor(x):
+        return Hkv
+    tp = axes_size("tp")
+    return -(-Hkv // tp) * tp
+
+
+def _pad_heads(w: torch.Tensor, H: int, Hp: int, dim: int) -> torch.Tensor:
+    """A projection weight whose flat dim `dim` holds H heads, widened with zero heads
+    to Hp and split by head over tp: gathered whole first (its tp split of the flat
+    dim does not line up with heads), each rank then keeping its own heads; w as it
+    is where Hp = H. The zero heads' q, k and v are 0, their attention output 0, and
+    their rows of the output projection 0: they add nothing."""
+    if Hp == H:
+        return w
+    per = w.shape[dim] // H
+    w = shard(w, None, None)
+    pad = [0, 0] * (1 - dim) + [0, (Hp - H) * per]
+    w = on_local(lambda t: torch.nn.functional.pad(t, pad), w, out=[w.placements])
+    return shard(w, *(("tp", None) if dim == 0 else (None, "tp")))
+
+
+def _heads(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, H: int, Hkv: int) -> torch.Tensor:
+    """x @ w as (B, S, H, dh), of `Hkv` kv heads. On a mesh the heads stay sharded over
+    tp only where tp divides those kv heads, as q, k and v must be split alike."""
     B, S, _ = x.shape
     t = x @ w.to(x.dtype)
-    if is_dtensor(t) and cfg.num_kv_heads % axes_size("tp"):
+    if is_dtensor(t) and Hkv % axes_size("tp"):
         t = shard(t, "dp", None, None)
     return t.view(B, S, H, cfg.head_dim)
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 kernels: bool = True):
-    """x: (B, S, D) -> q (B,S,Hkv,G,dh), k/v (B,S,Hkv,dh), RoPE'd + qk-normed."""
+                 kernels: bool = True, pad: bool = False):
+    """x: (B, S, D) -> q (B,S,Hkv,G,dh), k/v (B,S,Hkv,dh), RoPE'd + qk-normed. With
+    `pad`, on a mesh, over `kv_heads_split` kv heads (zero heads after the real
+    ones where tp does not divide Hkv); without it such heads are whole on
+    every rank."""
     B, S, _ = x.shape
-    Hq, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _heads(cfg, x, p["wq"], Hq)
-    k = _heads(cfg, x, p["wk"], Hkv)
-    v = _heads(cfg, x, p["wv"], Hkv)
+    Hkv, G, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    Hp = kv_heads_split(cfg, x) if pad else Hkv
+    q = _heads(cfg, x, _pad_heads(p["wq"], Hkv, Hp, 1), Hp * G, Hp)
+    k = _heads(cfg, x, _pad_heads(p["wk"], Hkv, Hp, 1), Hp, Hp)
+    v = _heads(cfg, x, _pad_heads(p["wv"], Hkv, Hp, 1), Hp, Hp)
     if cfg.qk_norm:
         q = _head_norm(p["q_norm"], q, kernels)
         k = _head_norm(p["k_norm"], k, kernels)
@@ -69,10 +105,18 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Te
     k = on_shards(lambda t: apply_rope(t, positions, cfg.rope_theta), k)
     # heads shard over tp; seq stays unsharded here (sequence parallelism applies
     # only to the norm / residual regions)
-    q = shard(q.view(B, S, Hkv, Hq // Hkv, dh), "dp", None, "tp", None, None)
+    q = shard(q.view(B, S, Hp, G, dh), "dp", None, "tp", None, None)
     k = shard(k, "dp", None, "tp", None)
     v = shard(v, "dp", None, "tp", None)
     return q, k, v
+
+
+def _out_proj(cfg: ModelConfig, p: dict, out: torch.Tensor) -> torch.Tensor:
+    """The row-parallel output projection of the attention output (B, S, Hp, G, dh),
+    its kv heads `kv_heads_split`'s: `wo` padded alike."""
+    B, S, Hp = out.shape[:3]
+    wo = _pad_heads(p["wo"], cfg.num_kv_heads, Hp, 0)
+    return out.reshape(B, S, -1) @ wo.to(out.dtype)
 
 
 def _dense_attention(q, k, v, q_pos, k_pos, window):
@@ -91,7 +135,7 @@ def _causal_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, kernels: bool)
     """Causal attention over the whole sequence: (out (B, S, D), k, v (B, S, Hkv, dh))."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos, kernels)
+    q, k, v = _project_qkv(cfg, p, x, pos, kernels, pad=True)
     if kernels:
         out = on_shards(lambda *t: fa_ops.flash_attention(*t, window=cfg.sliding_window), q, k, v)
     elif cfg.attn_impl == "dense" or S <= cfg.attn_chunk or S % cfg.attn_chunk:
@@ -102,7 +146,7 @@ def _causal_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, kernels: bool)
         # the same function (JAX asserts S a multiple of the chunk, the port keeps
         # the dense path for other lengths)
         out = flash_attention_vjp(q, k, v, cfg.sliding_window, cfg.attn_chunk, kernels=False)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(out.dtype), k, v
+    return _out_proj(cfg, p, out), k, v
 
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -115,21 +159,14 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     its plain twin, which needs S to be a multiple of `attn_chunk`, as JAX's
     does, and stays O(S * chunk) in memory.
     """
-    B, S, _ = x.shape
+    S = x.shape[1]
     pos = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos, kernels)
+    q, k, v = _project_qkv(cfg, p, x, pos, kernels, pad=True)
     if cfg.attn_impl == "dense" or S <= cfg.attn_chunk:
         out = on_shards(lambda *t: _dense_attention(*t, pos, pos, cfg.sliding_window), q, k, v)
     else:
         out = flash_attention_vjp(q, k, v, cfg.sliding_window, cfg.attn_chunk, kernels=kernels)
-    out = out.reshape(B, S, cfg.q_dim)
-    if is_dtensor(out) and cfg.num_kv_heads % axes_size("tp"):
-        # heads replicated (`_heads`): the gradient of the row-parallel product
-        # below comes split over the flat q_dim, which cannot be viewed back
-        # into heads that tp does not divide; this pins it to the heads' layout
-        out = shard(out, "dp", None, None)
-    out = out @ p["wo"].to(out.dtype)
-    return shard(out, "dp", "sp", None)
+    return shard(_out_proj(cfg, p, out), "dp", "sp", None)
 
 
 # ----------------------------------------------------------------- KV caching
@@ -163,21 +200,6 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device, cp: bool
     return {k: zeros(shp, cfg.compute_dtype, device, spec) for k in ("k", "v")}
 
 
-def _slots(K: torch.Tensor):
-    """(first slot, slot count, mesh dims splitting the length) of this rank's part of
-    a (B, W, ...) cache leaf: a DTensor sharded on dim 1 over those mesh dims,
-    major to minor; the whole length off a mesh or where it is not split."""
-    if not is_dtensor(K):
-        return 0, K.shape[1], ()
-    mesh = K.device_mesh
-    dims = tuple(i for i, pl in enumerate(K.placements) if isinstance(pl, Shard) and pl.dim == 1)
-    coord, part, parts = mesh.get_coordinate(), 0, 1
-    for i in dims:
-        part, parts = part * mesh.size(i) + coord[i], parts * mesh.size(i)
-    n = K.shape[1] // parts
-    return part * n, n, dims
-
-
 def _local_like(t: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """This rank's part of a (B, S, Hkv, ...) DTensor `t` with its batch and heads
     placed as the cache `K`'s and its sequence whole; `t` itself off a mesh."""
@@ -191,9 +213,9 @@ def _fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, ring: torch.Tenso
     """Write the prompt's k, v (B, S, Hkv, dh) into the zeroed cache: token t at slot t,
     or with `ring` (the slots' tokens) the ring's W tokens; each rank its own slots."""
     K = cache["k"]
-    lo, n, _ = _slots(K)
+    lo, n, _ = shard_range(K, 1)
     for name, t in (("k", k), ("v", v)):
-        t = _local_like(t, K)
+        t = _local_like(t, K)[:, :, :K.shape[2]]  # without `kv_heads_split`'s zero heads
         if ring is not None:
             t = t[:, ring]
         dst = cache[name].to_local() if is_dtensor(cache[name]) else cache[name]
@@ -293,7 +315,7 @@ def _decode_on_mesh(cfg, p, q, k, v, cache, pos: int, kernels: bool):
     B = q.shape[0]
     K, V = cache["k"], cache["v"]
     W = K.shape[1]
-    lo, n, dims = _slots(K)
+    lo, n, dims = shard_range(K, 1)
     Kl, Vl = K.to_local(), V.to_local()
     if lo <= pos % W < lo + n:  # this rank holds the slot
         Kl[:, pos % W - lo] = _local_like(k, K)[:, 0]

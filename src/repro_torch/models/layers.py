@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.axes import shard
+from repro_torch.parallel.axes import ce_combine, on_shards, shard
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +79,59 @@ def lm_logits(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     vocab-sharded on a mesh."""
     logits = x.to(dtype) @ p["w"].to(dtype)
     return shard(logits, "dp", None, "tp") if logits.dim() == 3 else shard(logits, "dp", "tp")
+
+
+def chunk_ce(logits: torch.Tensor, y: torch.Tensor):
+    """(per-token nll, argmax) of a chunk's float32 logits (..., V) at labels y (...),
+    -1 where ignored (their nll is the logsumexp, masked by the caller): JAX's
+    `chunk_loss` over the whole vocabulary. The gold logit is taken on each
+    rank's rows on a mesh: DTensor's strategy for the gather's backward (a
+    scatter into zeros) would replicate the chunk's float32 gradient over the
+    data axes."""
+    gold = on_shards(lambda lg, t: lg.gather(-1, t.clamp_min(0)[..., None])[..., 0], logits, y)
+    return torch.logsumexp(logits, -1) - gold, logits.argmax(-1)
+
+
+def ce_parts(logits: torch.Tensor, y: torch.Tensor, v0):
+    """The vocab-parallel CE's local function on one block of the vocabulary: logits
+    (..., Vb) float32 for the token ids v0 .. v0 + Vb - 1, labels y (...) over the
+    whole vocabulary (v0 an int, or a tensor that broadcasts against y for parts on
+    a leading dim). Returns (lse, gold, top, arg), `ce_combine`'s parts: the block's
+    log-sum-exp, the label's logit where the label is in the block (0 elsewhere),
+    the block's largest logit and its lowest global index."""
+    Vb = logits.shape[-1]
+    i = y - v0
+    inside = (i >= 0) & (i < Vb)
+    gold = logits.gather(-1, i.clamp(0, Vb - 1)[..., None])[..., 0]
+    arg = logits.argmax(-1)
+    top = logits.gather(-1, arg[..., None])[..., 0]
+    return torch.logsumexp(logits, -1), torch.where(inside, gold, 0.0), top, arg + v0
+
+
+class VocabParallelCE(torch.autograd.Function):
+    """(per-token nll, argmax) of logits split over the vocabulary: `ce_parts` on
+    each block, joined by `ce_combine` (over the ranks of the mesh dims `dims`, or
+    over a leading dim of parts with `mesh` None). The backward is the softmax
+    minus the one-hot of the label, on each block alone: exp(x - lse) - [y = v]."""
+
+    @staticmethod
+    def forward(ctx, logits, y, v0, mesh, dims):
+        lse, gold, arg = ce_combine(*ce_parts(logits, y, v0), mesh, dims)
+        ctx.save_for_backward(logits, y, lse)
+        ctx.v0 = v0
+        ctx.mark_non_differentiable(arg)
+        return lse - gold, arg
+
+    @staticmethod
+    def backward(ctx, g, _):
+        logits, y, lse = ctx.saved_tensors
+        Vb = logits.shape[-1]
+        i = y - ctx.v0
+        inside = ((i >= 0) & (i < Vb)).to(logits.dtype)
+        grad = torch.exp(logits - lse[..., None])
+        grad = grad.scatter_add(-1, i.clamp(0, Vb - 1)[..., None].expand(*grad.shape[:-1], 1),
+                                -inside.expand(grad.shape[:-1])[..., None])
+        return grad * g[..., None], None, None, None, None
 
 
 def group_norm_heads(p: dict, x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.axes import axes_size, is_dtensor, on_local, regrid, shard, write
+from repro_torch.parallel.axes import (axes_size, is_dtensor, on_local, regrid, shard, shard_range,
+                                       write)
 
 
 def dims(cfg: ModelConfig):
@@ -66,12 +67,12 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 
 
 def _heads_split(cfg: ModelConfig) -> str | None:
-    """"tp" where the heads shard over tp on a mesh: a rank's heads must be whole
-    groups, or all read the one group; None (replicated) elsewhere."""
+    """"tp" where the heads shard over tp on a mesh: tp divides them, and a rank's
+    heads are whole groups or lie in one group; None (replicated) elsewhere."""
     s = cfg.ssm
     tp = axes_size("tp")
     H = dims(cfg)[1]
-    ok = tp > 1 and H % tp == 0 and (s.n_groups == 1 or s.n_groups % tp == 0)
+    ok = tp > 1 and H % tp == 0 and (s.n_groups % tp == 0 or (H // s.n_groups) % (H // tp) == 0)
     return "tp" if ok else None
 
 
@@ -157,13 +158,22 @@ def _whole_cols(zxbcdt, p):
 
 def _per_head(cfg, h, xh, dtr, z, Bm, Cm, p):
     """xh, dt, z and the per-head parameters split by head over `h` ("tp" or None),
-    B and C by group where the groups split with the heads (a local slice of the
-    whole value, no message)."""
-    g = h if cfg.ssm.n_groups > 1 else None
+    B and C by group where the groups split with the heads (a rank's heads whole
+    groups; a local slice of the whole value, no message), and the slice of
+    groups of B and C that this rank's heads read (JAX's `jnp.repeat` of B and C
+    over the heads, on this rank's heads): where B and C stay whole, the groups
+    of its heads; all of them where the heads are whole."""
+    g = h if h and cfg.ssm.n_groups % axes_size("tp") == 0 else None
     lead = (None,) * (xh.dim() - 3)  # the sequence dim, where there is one
-    return (shard(xh, "dp", *lead, h, None), shard(dtr, "dp", *lead, h), shard(z, "dp", *lead, h),
+    xh = shard(xh, "dp", *lead, h, None)
+    own = slice(None)
+    if g is None:
+        h0, n, _ = shard_range(xh, xh.dim() - 2)
+        hpg = dims(cfg)[1] // cfg.ssm.n_groups
+        own = slice(h0 // hpg, (h0 + n - 1) // hpg + 1)
+    return (xh, shard(dtr, "dp", *lead, h), shard(z, "dp", *lead, h),
             shard(Bm, "dp", *lead, g, None), shard(Cm, "dp", *lead, g, None),
-            *(shard(p[k], h) for k in ("a_log", "d_skip", "dt_bias")), shard(p["norm"], h))
+            *(shard(p[k], h) for k in ("a_log", "d_skip", "dt_bias")), shard(p["norm"], h), own)
 
 
 def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
@@ -173,8 +183,9 @@ def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
     On a mesh (JAX's shard sites: xh on ("dp", None, "tp", None), the output on
     ("dp", "sp", None)) the sequence is gathered whole (sequence parallelism
     splits it between blocks, and the conv needs the previous rank's last W - 1
-    rows), the conv runs on every column, and the SSD on each rank's heads;
-    the gated norm's mean over d_inner then sums across them."""
+    rows), the conv runs on every column, and the SSD on each rank's heads
+    (`_heads_split`) and their groups of B and C; the gated norm's mean over
+    d_inner then sums across them."""
     dt_c = x.dtype
     x = shard(x, "dp", None, None)
     zxbcdt, cw, cb = _whole_cols(x @ p["w_in"].to(dt_c), p)
@@ -182,10 +193,12 @@ def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
                     out=[getattr(zxbcdt, "placements", None)] * 6)
     z, xh, Bm, Cm, dtr, conv_state = outs
     h = _heads_split(cfg)
-    xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm = _per_head(cfg, h, xh, dtr, z, Bm, Cm, p)
+    xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm, own = _per_head(cfg, h, xh, dtr, z, Bm, Cm,
+                                                                       p)
     pl = getattr(xh, "placements", None)  # (B, S, H, P): y (B, S, H * P), the state (B, H, N, P)
-    y, state = on_local(functools.partial(_ssd, chunk), xh, dtr, Bm, Cm, a_log, d_skip, dt_bias,
-                        out=[pl, regrid(pl, {0: 0, 2: 1})])
+    y, state = on_local(lambda xh, dtr, Bm, Cm, *w: _ssd(chunk, xh, dtr, Bm[:, :, own],
+                                                         Cm[:, :, own], *w),
+                        xh, dtr, Bm, Cm, a_log, d_skip, dt_bias, out=[pl, regrid(pl, {0: 0, 2: 1})])
     y = _gated_norm(norm, y, z)
     return shard(y @ p["w_out"].to(dt_c), "dp", "sp", None), {"ssd": state, "conv": conv_state}
 
@@ -226,7 +239,8 @@ def mamba2_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> to
     """One-token recurrent step. x: (B, 1, D) -> y (B, 1, D); `state` updated in place.
     On a mesh the state is placed per `mamba2_state_specs`: the conv runs on every
     column (its state gathered, then written back to each rank's shard) and the
-    step on each rank's heads, on its own shard of the SSD state."""
+    step on each rank's heads (`_heads_split`), stepping its own shard of the SSD
+    state in place."""
     dt_c = x.dtype
     zxbcdt, cw, cb = _whole_cols(x[:, 0] @ p["w_in"].to(dt_c), p)
     conv = shard(state["conv"], "dp", None, None)
@@ -235,15 +249,16 @@ def mamba2_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> to
         out=[getattr(zxbcdt, "placements", None)] * 6)
     write(state["conv"], new_conv)
     h = _heads_split(cfg)
-    xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm = _per_head(cfg, h, xh, dtr, z, Bm, Cm, p)
+    xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm, own = _per_head(cfg, h, xh, dtr, z, Bm, Cm,
+                                                                       p)
     ssd = state["ssd"]
     if h is None and is_dtensor(ssd):
-        # heads replicated (`_heads_split`: tp does not split the groups) while JAX's
-        # spec splits the state by head: the step runs on a gathered copy, and each
-        # rank writes its own heads back
+        # heads replicated (`_heads_split`: tp does not divide them, or a rank's
+        # heads would span groups) while JAX's spec splits the state by head: the
+        # step runs on a gathered copy, and each rank writes its own heads back
         ssd = shard(ssd, "dp", None, None, None)
-    y = on_local(_ssd_step, xh, dtr, Bm, Cm, ssd, a_log, d_skip, dt_bias,
-                 out=[getattr(z, "placements", None)])
+    y = on_local(lambda xh, dtr, Bm, Cm, *w: _ssd_step(xh, dtr, Bm[:, own], Cm[:, own], *w),
+                 xh, dtr, Bm, Cm, ssd, a_log, d_skip, dt_bias, out=[getattr(z, "placements", None)])
     if ssd is not state["ssd"]:
         write(state["ssd"], ssd)
     y = _gated_norm(norm, y, z)

@@ -55,7 +55,7 @@ import contextlib
 import functools
 
 import torch
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import Replicate, distribute_tensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -63,12 +63,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe, rwkv6
-from repro_torch.models.layers import apply_norm, embed_lookup, lm_logits
+from repro_torch.models.layers import (VocabParallelCE, apply_norm, chunk_ce, embed_lookup,
+                                      lm_logits)
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
                                        n_head_layers, param_defs, param_specs, unstacked_layers)
 from repro_torch.parallel.axes import (activation_pspec, current_mesh, is_dtensor, logical_spec,
-                                       on_shards, placements, shard, whole, write, zeros)
+                                       on_local, on_shards, placements, shard, shard_range, whole,
+                                       write, zeros)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # the slot axis of every cache leaf, by the part of the cache it is in
@@ -346,20 +348,23 @@ class Model:
         return _norm(params["final_norm"], x, self.kernels), aux
 
     def _chunk_loss(self, params: dict, xc: torch.Tensor, y: torch.Tensor):
-        """(summed nll, valid count, hits) of one chunk, from its fp32 logits."""
-        logits = self._head(params, xc)  # (B, chunk, V) fp32
-        # on a mesh the logits are vocab-sharded over tp; logsumexp and argmax have
-        # no DTensor strategy that keeps a reduced dim sharded: gather the chunk's
-        # logits over tp before them
-        logits = shard(logits, "dp", None, None)
+        """(summed nll, valid count, hits) of one chunk, from its fp32 logits. On a mesh
+        whose tp splits the vocabulary, each rank keeps its block of the logits
+        (B, chunk, V / tp) and the CE is vocab-parallel (`layers.VocabParallelCE`):
+        no rank forms the chunk's whole-vocab logits or their gradient."""
+        logits = self._head(params, xc)  # (B, chunk, V) fp32, vocab-sharded on a mesh
         valid = (y >= 0).float()
-        # the gold logit on each rank's rows: DTensor's strategy for the gather's
-        # backward (a scatter into zeros) replicates the chunk's float32 gradient
-        # over the data axes, the whole global batch's (B, chunk, V) on every rank
-        gold = on_shards(lambda lg, t: lg.gather(-1, t.clamp_min(0)[..., None])[..., 0],
-                         logits, y)
-        nll = ((torch.logsumexp(logits, -1) - gold) * valid).sum()
-        return nll, valid.sum(), ((logits.argmax(-1) == y).float() * valid).sum()
+        v0, _, split = shard_range(logits, 2)
+        split = tuple(d for d in split if logits.device_mesh.size(d) > 1)
+        if split:
+            rows = [Replicate() if d in split else p for d, p in enumerate(logits.placements)]
+            y = y.redistribute(y.device_mesh, rows) if is_dtensor(y) else y
+            mesh = logits.device_mesh
+            nll, arg = on_local(lambda lg, t: VocabParallelCE.apply(lg, t, v0, mesh, split),
+                                logits, y, out=[rows, rows])
+        else:
+            nll, arg = chunk_ce(shard(logits, "dp", None, None), y)
+        return (nll * valid).sum(), valid.sum(), ((arg == y).float() * valid).sum()
 
     def loss(self, params: dict, batch: dict, remat: str | None = None):
         """Next-token CE over `loss_chunk`-token chunks of fp32 logits: (loss, metrics).
@@ -371,7 +376,8 @@ class Model:
         `jax.checkpoint(chunk_loss)`. An MoE config adds `aux_loss_coef` times
         the load-balance and z losses to the CE. `remat` goes to `forward`.
         On a mesh the sums are reduced over the data axes and the loss and the
-        metrics are plain tensors, the same on every rank.
+        metrics are plain tensors, the same on every rank; a chunk's logits stay
+        split over tp (`_chunk_loss`).
         """
         cfg = self.cfg
         x, aux = self.forward(params, batch, remat=remat)

@@ -16,16 +16,21 @@ None, a mesh axis name, or a tuple of them (JAX's PartitionSpec entries), and
 When no mesh is active every helper is a no-op, so the single-device path is
 unchanged. `shard` is JAX's `with_sharding_constraint`: it redistributes a
 DTensor to the annotated placements and passes a plain tensor through. Unlike
-GSPMD, which pads a dim that a mesh axis does not divide, the port leaves such
-a dim unsharded (`sanitize_pspec`), for activations as for parameters: the
-function computed is the same.
+GSPMD, which pads a dim that a mesh axis does not divide, `sanitize_pspec`
+leaves such a dim unsharded, for activations as for parameters: the function
+computed is the same. Where that would leave a rank more than JAX's specs give
+it, the model pads or reduces by hand: attention pads its kv heads to a
+multiple of tp (`models/attention.py::kv_heads_split`), and the CE reduces its
+vocab-split logits over tp (`ce_combine`).
 
 `on_shards` and `on_local` run the parts that work on local shards through
 `local_map`: the kernels' autograd Functions and the per-head or per-row code
 around them, per-head parameters (Mamba2's and RWKV6's) on their own shards.
-`write` fills a placed cache or state in place, shard by shard, and
-`lse_combine` joins the partial outputs of ranks that hold parts of a KV
-cache's length, as flash-decode joins its splits. A mesh also
+`write` fills a placed cache or state in place, shard by shard; `shard_range`
+is a rank's part of a split dim. `lse_combine` joins the partial outputs of
+ranks that hold parts of a KV cache's length, as flash-decode joins its
+splits, and `ce_combine` the CE's parts of ranks that hold blocks of the
+vocabulary; both also join parts on a leading dim (`reduce_parts`). A mesh also
 stands for a stand-in object with a `shape` dict (axis -> size), which is all
 that `axes_size`, `sanitize_pspec` and the ZeRO-1 specs read.
 """
@@ -270,26 +275,65 @@ def write(dst, src) -> None:
     dst.to_local().copy_(src.redistribute(dst.device_mesh, dst.placements).to_local())
 
 
+def shard_range(t, dim: int):
+    """(first index, count, mesh dims splitting it) of this rank's part of dim `dim`
+    of a DTensor `t` sharded on it over those mesh dims, major to minor; the
+    whole dim off a mesh or where it is not split."""
+    if not is_dtensor(t):
+        return 0, t.shape[dim], ()
+    mesh = t.device_mesh
+    dims = tuple(i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim)
+    coord, part, parts = mesh.get_coordinate(), 0, 1
+    for i in dims:
+        part, parts = part * mesh.size(i) + coord[i], parts * mesh.size(i)
+    n = t.shape[dim] // parts
+    return part * n, n, dims
+
+
+_REDUCE = {"max": (dist.ReduceOp.MAX, torch.amax), "min": (dist.ReduceOp.MIN, torch.amin),
+           "sum": (dist.ReduceOp.SUM, torch.sum)}
+
+
+def reduce_parts(t, op: str, mesh=None, dims=()):
+    """`t`'s parts reduced by `op` ("max", "min" or "sum"): with `mesh`, this rank
+    holds one part and the parts are the ranks along the mesh dims `dims`
+    (all-reduces in place, in t's dtype); without it, the parts lie on t's
+    leading dim."""
+    red, local = _REDUCE[op]
+    if mesh is None:
+        return local(t, 0)
+    for d in dims:
+        dist.all_reduce(t, op=red, group=mesh.get_group(d))
+    return t
+
+
 def lse_combine(o, lse, mesh=None, dims=()):
     """Flash-decode's combine of partial attention outputs over parts of a cache's
     length: o (..., dh) each part's output over its own slots, lse (...) its
     log-sum-exp of the scaled scores; returns the output over all of them, float32:
     m = max_r lse_r, o = sum_r exp(lse_r - m) o_r / sum_r exp(lse_r - m). A part
     with no valid slot gives o = 0, lse = NEG_INF (-1e30, not -inf: no NaN arises).
-    With `mesh`, this rank holds one part and the parts are the ranks along the
-    mesh dims `dims`, reduced by all-reduces in float32; without it, the parts lie
-    on the leading dim of `o` and `lse`."""
-    def reduce(t, op):
-        if mesh is None:
-            return t.amax(0) if op == "max" else t.sum(0)
-        for d in dims:
-            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
-                            group=mesh.get_group(d))
-        return t
-
+    The parts are ranks or a leading dim, as `reduce_parts` reads them."""
     lse = lse.float()
-    w = torch.exp(lse - reduce(lse.clone(), "max"))
-    return reduce(o.float() * w[..., None], "sum") / reduce(w, "sum")[..., None]
+    w = torch.exp(lse - reduce_parts(lse.clone(), "max", mesh, dims))
+    return (reduce_parts(o.float() * w[..., None], "sum", mesh, dims)
+            / reduce_parts(w, "sum", mesh, dims)[..., None])
+
+
+def ce_combine(lse, gold, top, arg, mesh=None, dims=()):
+    """The vocab-parallel CE's combine of its parts, each a block of the vocabulary:
+    lse (...) each part's log-sum-exp of its logits, gold (...) the label's logit
+    where the label lies in the part (0 elsewhere), top (...) the part's largest
+    logit and arg (...) its lowest global index. Returns (lse, gold, argmax) over
+    the whole vocabulary: m = max_r lse_r, lse = m + log sum_r exp(lse_r - m); gold
+    the sum; argmax the lowest index among the parts whose top is the largest,
+    as `torch.argmax` breaks ties over the whole. On a mesh, three all-reduces a
+    mesh dim; the parts are ranks or a leading dim, as `reduce_parts` reads them."""
+    mx = reduce_parts(torch.stack([lse, top], -1), "max", mesh, dims)
+    m, best = mx[..., 0], mx[..., 1]
+    s = reduce_parts(torch.stack([torch.exp(lse - m), gold], -1), "sum", mesh, dims)
+    cand = torch.where(top == best, arg, torch.iinfo(arg.dtype).max)
+    return m + torch.log(s[..., 0]), s[..., 1], reduce_parts(cand, "min", mesh, dims)
 
 
 def whole(t):

@@ -632,3 +632,23 @@ def test_dryrun_traced_peak_within_10_percent_of_the_card(dev, remat):
     measured = torch.cuda.max_memory_allocated(dev)
     assert abs(trace["memory"]["peak_bytes_per_device"] / measured - 1) <= 0.10, \
         (trace["memory"], measured)
+
+
+def test_vocab_parallel_ce_on_cuda_matches_the_whole(dev, capsys):
+    """The vocab-parallel CE (`layers.VocabParallelCE`, what a rank of a tp mesh
+    runs on its vocab block) on CUDA with the blocks on a leading dim, against the
+    whole-vocab CE: `chip_smoke.py`'s phase 15 (VOCAB_NOTE) at a smaller head (d
+    1024, V 32768, 16 blocks, x (2, 512, 1024) bf16): loss, nll sum and the
+    gradients within 1e-5 relative, hits and every argmax equal, the planted tie
+    resolved to the lower column; one block's peak memory under the whole's."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    out = chip_smoke.phase_vocab_split(dev, "test", d=1024, vocab=32768, batch=2, chunk=512,
+                                       blocks=16)
+    assert max(out[k] for k in ("loss", "nll", "dx", "dw")) <= chip_smoke.VOCAB_TOL, out
+    assert out["block_gib"] < out["whole_gib"] / 4, out
+    assert "argmax differs at 0 of 1024 tokens" in capsys.readouterr().out

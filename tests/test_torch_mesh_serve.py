@@ -91,8 +91,9 @@ CASES = {
     # Mamba2 states on model (by head; the conv state by column), the shared
     # block's cache at each application split over data
     "zamba2-1.2b": (dict(), (2, 2), 7, 5, 16),
-    # two Mamba2 groups that tp 4 does not split: the heads replicated, the SSD
-    # state split by head as JAX's spec places it (stepped on a gathered copy)
+    # two Mamba2 groups that tp 4 does not split: each rank's 4 of the 16 heads lie
+    # in one group, so the heads split over tp, the SSD state by head as JAX's spec
+    # places it, each rank stepping its own heads' state in place
     "zamba2-1.2b groups2": (dict(ssm=dataclasses.replace(get_config("zamba2_1p2b").reduced().ssm,
                                                          n_groups=2)), (1, 4), 7, 5, 16),
     # one kv head: tp does not divide it, so the cache's length splits over model
