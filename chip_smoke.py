@@ -137,6 +137,16 @@ Phases, each of which fails the run with a non-zero exit:
                whole vocabulary (loss, nll sum, hits, argmax with a planted tie
                across two blocks, the gradients of x and the head); the peak
                memory of one block's forward and backward beside the whole's.
+ 16. layout  - what a rank of a mesh holds, emulated on the one card (LAYOUT_NOTE):
+               (a) qwen3-14b's token table in 16 vocab blocks, each looked up
+               and differentiated by the mesh path's local function, against the
+               whole table (lookup and gradient rows bit for bit); (b) one
+               zamba2-1.2b Mamba2 layer run as tp 16's sixteen four-head shards,
+               each on its own columns, put back together against the
+               whole-column layer (output, SSD and conv state, every gradient);
+               each with one part's peak memory beside the whole's; (c) the
+               microbatch rows, which one rank cannot show; (d) the library
+               times of the decode kernel's LSE rows.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -184,7 +194,8 @@ from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.models.params import _walk, distribute, layer_params, param_defs  # noqa: E402
 from repro_torch.parallel.axes import (lse_combine, make_rules, placements,  # noqa: E402
                                        sanitize_pspec, use_mesh)
-from repro_torch.models.layers import VocabParallelCE, chunk_ce, lm_logits  # noqa: E402
+from repro_torch.models.layers import (VocabParallelCE, VocabParallelEmbedding,  # noqa: E402
+                                       chunk_ce, lm_logits)
 from repro_torch.models.transformer import (AUX_KEYS, Model, _apply_mamba_layer,  # noqa: E402
                                             _apply_rwkv_layer, cache_leaves, saved_record)
 from repro_torch.train.train_step import loss_and_grads  # noqa: E402
@@ -3146,6 +3157,238 @@ def phase_vocab_split(dev, smi: str, *, d=4096, vocab=256000, batch=2, chunk=204
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+# LAYOUT_NOTE: phase 16 holds, on the card, the local functions that a rank of a
+# mesh runs where it holds only its share (ROADMAP C15, C16 and Mamba2's whole
+# columns). One card is one rank, so each split is emulated part by part in one
+# process, the parts joined as the mesh joins them. (a) The token table: qwen3-14b's
+# at full size (151936 x 5120, seeded bf16) in 16 vocab blocks (tp 16's), a batch
+# of (2, 4096) tokens of which a quarter are drawn from 64 ids, so that rows
+# repeat within and across blocks. Each block's rows come from
+# `layers.VocabParallelEmbedding` (zeros for the tokens of other blocks) and its
+# gradient, at a seeded upstream gradient, from that Function's backward; held to
+# `F.embedding` over the whole table: the blocks' rows summed equal to the whole
+# lookup and each block's gradient equal to the whole gradient's rows, both bit
+# for bit (the sum has one non-zero part a token; a row's gradient adds the same
+# terms in the same order), a gradient within LAYOUT_TOL relative if not, its
+# largest difference printed. (b) Mamba2: one zamba2-1.2b layer at full width
+# (seeded bf16 weights; x (2, 4096, 2048)), run as tp 16's shards of 4 heads,
+# each through the mesh path's own functions on its columns alone
+# (`mamba2.own_columns`, `heads_in`, `heads_out`): the sums of squares and the
+# output parts summed over the shards in float32, as `SumOverRanks` sums them over
+# tp; the SSD states joined by head, the conv state by its columns (each shard
+# computes the 272 that the cache holds on its rank). Held to the whole-column
+# layer (`mamba2_seq` off a mesh) leaf by leaf: the output, both states and the
+# gradients of x and of every weight (the weights whole, so that the shards'
+# gradients sum as the mesh's Partial gradients do), each within twice its bf16 floor (TRAIN_NOTE's bar: the
+# relative norm of the difference against that of the whole layer in bf16 from
+# the whole in float32): cuBLAS may pick another GEMM for 644 columns than for
+# 8512. Each part's `max_memory_allocated` of a forward and backward (one block;
+# one shard, its own sum of squares standing for the whole's) is printed beside
+# the whole's. (c) The microbatch split moves rows between dp ranks, and one rank
+# is dp 1: the CPU gloo tests carry it (`tests/test_torch_mesh_rows.py`). (d) The
+# decode kernel's LSE rows (phase 10) get their library time: SDPA's flash
+# attention with its log-sum-exp (`aten._scaled_dot_product_flash_attention`), a
+# kv head's G query heads as G query rows over the first n_valid slots, no mask,
+# timed as `_decode_timing` times SDPA (graph-captured, over ROTATION cache pairs).
+LAYOUT_TABLE = dict(vocab=151936, d=5120, batch=2, seq=4096, blocks=16)
+LAYOUT_MAMBA2 = dict(batch=2, seq=4096, tp=16)
+LAYOUT_TOL = 1e-6
+
+
+def phase_layout_table(dev, smi: str, *, vocab=151936, d=5120, batch=2, seq=4096, blocks=16, seed=0,
+                       memory=True) -> dict:
+    """LAYOUT_NOTE (a): the vocab-parallel lookup's blocks against the whole table."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(vocab, d, generator=gen, device=dev).to(bf)
+    g = torch.randn(batch, seq, d, generator=gen, device=dev).to(bf)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (batch, seq))
+    hot = rng.integers(0, vocab, 64)
+    pick = rng.random((batch, seq)) < 0.25
+    tokens[pick] = hot[rng.integers(0, 64, int(pick.sum()))]
+    repeated = int(tokens.size - np.unique(tokens).size)
+    tokens = torch.from_numpy(tokens).to(dev)
+    Vb = vocab // blocks
+
+    def whole():
+        t = table.detach().requires_grad_()
+        out = F.embedding(tokens, t)
+        out.backward(g)
+        return out.detach(), t.grad
+
+    def block(b):
+        t = table[b * Vb:(b + 1) * Vb].detach().requires_grad_()
+        out = VocabParallelEmbedding.apply(t, tokens, b * Vb, bf, None, ())
+        out.backward(g)
+        return out.detach(), t.grad
+
+    rows, grad = whole()
+    summed, exact, worst = torch.zeros_like(rows), 0, 0.0
+    for b in range(blocks):
+        part, gb = block(b)
+        summed += part
+        ref = grad[b * Vb:(b + 1) * Vb]
+        if torch.equal(gb, ref):
+            exact += 1
+        else:
+            worst = max(worst, _err(gb, ref) / max(ref.float().abs().max().item(), 1e-30))
+    same = torch.equal(summed, rows)
+    log(f"[layout] (a) token table ({vocab}, {d}) bf16 in {blocks} vocab blocks of {Vb}, tokens "
+        f"({batch}, {seq}), {repeated} of them repeats: the blocks' rows summed equal the whole "
+        f"lookup bit for bit: {same}; gradient blocks equal to the whole gradient's rows bit for "
+        f"bit: {exact} of {blocks} (largest relative difference of the others {worst:.3e}, tol "
+        f"{LAYOUT_TOL:g})")
+    if not (same and worst <= LAYOUT_TOL):
+        raise AssertionError(f"layout (a): the blocks differ from the whole table: lookup equal "
+                             f"{same}, gradient {worst}")
+    out = {"lookup_equal": same, "grad_exact": exact, "grad_worst": worst, "repeats": repeated}
+    del rows, grad, summed
+    if memory:
+        out["block_gib"] = _peak_gib(lambda: block(0))
+        out["whole_gib"] = _peak_gib(whole)
+        log(f"[layout] (a) max_memory_allocated of a lookup and its backward: one block "
+            f"{out['block_gib']:.3f} GiB, the whole table {out['whole_gib']:.3f} GiB; {smi}")
+    return out
+
+
+def mamba2_layer(cfg, dev, dtype, seed=0) -> dict:
+    """One Mamba2 layer's weights at the config's width, seeded: the leaves
+    `mamba2_seq` reads, the per-head constants drawn at random as the CPU tests
+    draw them."""
+    s = cfg.ssm
+    d_inner, H, conv_dim = mamba2.dims(cfg)
+    D = cfg.d_model
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, scale):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32))
+
+    p = {"w_in": draw((D, 2 * d_inner + 2 * s.n_groups * s.d_state + H), D ** -0.5),
+         "conv_w": draw((conv_dim, s.conv_width), 0.1), "conv_b": draw((conv_dim,), 0.1),
+         "a_log": torch.from_numpy(rng.uniform(-1.0, 1.5, H).astype(np.float32)),
+         "dt_bias": torch.from_numpy(rng.uniform(-2.0, 0.5, H).astype(np.float32)),
+         "d_skip": torch.from_numpy(rng.uniform(0.5, 1.5, H).astype(np.float32)),
+         "norm": 1 + draw((d_inner,), 0.1), "w_out": draw((d_inner, D), d_inner ** -0.5)}
+    return {k: v.to(dev, dtype) for k, v in p.items()}
+
+
+def _mamba2_grads(run, cfg, p, x, gy) -> dict:
+    """The layer's output, states and the gradients of x and every weight, at the
+    upstream gradient gy, of `run(cfg, p, x)` -> (y, ssd state, conv state)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in {"x": x, **p}.items()}
+    y, ssd, conv = run(cfg, {k: v for k, v in leaves.items() if k != "x"}, leaves["x"])
+    grads = torch.autograd.grad(y, list(leaves.values()), gy)
+    return {"y": y.detach(), "ssd": ssd.detach(), "conv": conv.detach(),
+            **{f"d {k}": v for k, v in zip(leaves, grads)}}
+
+
+def _whole_layer(cfg, p, x):
+    y, st = mamba2.mamba2_seq(cfg, p, x)
+    return y, st["ssd"], st["conv"]
+
+
+def mamba2_shards(tp: int, only=None):
+    """`mamba2_seq` as a tp mesh runs it, its `tp` head shards emulated in turn (the
+    mesh path's local functions, LAYOUT_NOTE (b)), each with its share of the conv
+    state's columns; with `only`, that shard alone, its own sum of squares standing
+    for the whole's (for its memory)."""
+    def run(cfg, p, x):
+        d_inner, H, conv_dim = mamba2.dims(cfg)
+        n, P, c = H // tp, cfg.ssm.head_dim, conv_dim // tp
+        parts = []
+        for r in range(tp) if only is None else (only,):
+            proj, conv, groups = mamba2.own_columns(cfg, r * n, n, x.device)
+            hs, cs = slice(r * n, (r + 1) * n), slice(r * n * P, (r + 1) * n * P)
+            state_cols = torch.arange(r * c, (r + 1) * c, device=x.device)
+            parts.append((mamba2.heads_in(cfg, 256, proj, conv, groups, state_cols, x, p["w_in"],
+                                          p["conv_w"], p["conv_b"], p["a_log"][hs], p["d_skip"][hs],
+                                          p["dt_bias"][hs]), cs))
+        ms = sum(ssq for (_, ssq, _, _), _ in parts) / d_inner
+        y = sum(mamba2.heads_out(p["norm"][cs], yf, ms, p["w_out"][cs], x.dtype).float()
+                for (yf, _, _, _), cs in parts).to(x.dtype)
+        return (y, torch.cat([st for (_, _, st, _), _ in parts], 1),
+                torch.cat([conv for (_, _, _, conv), _ in parts], 1))
+    return run
+
+
+def phase_layout_mamba2(dev, smi: str, cfg, *, batch=2, seq=4096, tp=16, seed=0,
+                        memory=True) -> dict:
+    """LAYOUT_NOTE (b): a Mamba2 layer's tp head shards against the whole-column layer."""
+    bf = torch.bfloat16
+    p = mamba2_layer(cfg, dev, bf, seed)
+    rng = np.random.default_rng(seed + 1)
+    x = _randn(rng, (batch, seq, cfg.d_model), bf, dev)
+    gy = _randn(rng, (batch, seq, cfg.d_model), bf, dev)
+    whole = _mamba2_grads(_whole_layer, cfg, p, x, gy)
+    whole32 = _mamba2_grads(_whole_layer, cfg, {k: v.float() for k, v in p.items()}, x.float(),
+                            gy.float())
+    split = _mamba2_grads(mamba2_shards(tp), cfg, p, x, gy)
+    _, H, _ = mamba2.dims(cfg)
+    worst, rows = 0.0, []
+    for k, ref in whole.items():
+        ref32 = whole32[k]
+        norm = ref32.float().norm().item()
+        err = (split[k].float() - ref.float()).norm().item() / norm
+        floor = (ref.float() - ref32.float()).norm().item() / norm
+        worst = max(worst, err / max(floor, 1e-30))
+        rows.append(f"{k} {err:.3e} (floor {floor:.3e})")
+        if not err <= 2 * floor:
+            raise AssertionError(f"layout (b): {k}: {err} > 2 x the bf16 floor {floor}")
+    log(f"[layout] (b) {cfg.name} Mamba2 layer, x ({batch}, {seq}, {cfg.d_model}) bf16, as tp "
+        f"{tp}'s {tp} shards of {H // tp} heads on their own columns, put together, against the "
+        f"whole-column layer; relative error (bar 2 x the bf16 floor): {'; '.join(rows)}; worst "
+        f"{worst:.3f} floors")
+    out = {"worst_floors": worst}
+    del whole, whole32, split
+    if memory:
+        shard0 = mamba2_shards(tp, only=0)
+        out["shard_gib"] = _peak_gib(lambda: _mamba2_grads(shard0, cfg, p, x, gy))
+        out["whole_gib"] = _peak_gib(lambda: _mamba2_grads(_whole_layer, cfg, p, x, gy))
+        log(f"[layout] (b) max_memory_allocated of the layer's forward and backward: one shard "
+            f"{out['shard_gib']:.3f} GiB, the whole-column layer {out['whole_gib']:.3f} GiB; {smi}")
+    return out
+
+
+def _lse_library_ms(rng, dev, B, Hkv, G, T, dh, nv) -> float:
+    """LAYOUT_NOTE (d): SDPA's flash attention with its LSE at a decode LSE row's shape."""
+    bf = torch.bfloat16
+    q = _randn(rng, (B, Hkv, G, dh), bf, dev)
+    pairs = [tuple(_randn(rng, (B, T, Hkv, dh), bf, dev).transpose(1, 2) for _ in range(2))
+             for _ in range(ROTATION)]
+    turn = itertools.cycle(pairs)
+
+    def call():
+        k, v = next(turn)
+        return torch.ops.aten._scaled_dot_product_flash_attention(q, k[:, :, :nv], v[:, :, :nv])[:2]
+
+    out, lse = call()  # on the first pair
+    ref, ref_lse = decode_attention_ref(q.float(), *(t.float() for t in pairs[0]), nv, lse=True)
+    err = max(_err(out, ref), _err(lse, ref_lse))
+    if not err < TOL[bf]:
+        raise AssertionError(f"layout (d): SDPA's LSE call differs from the plain version: {err}")
+    return time_ms(call, iters=6 * ROTATION, graph=True)
+
+
+def phase_layout(dev, smi: str, lse_rows: list, *, seed=0) -> dict:
+    """LAYOUT_NOTE: phase 16's four parts."""
+    table = phase_layout_table(dev, smi, seed=seed, **LAYOUT_TABLE)
+    torch.cuda.empty_cache()
+    layer = phase_layout_mamba2(dev, smi, get_config("zamba2_1p2b"), seed=seed, **LAYOUT_MAMBA2)
+    torch.cuda.empty_cache()
+    log("[layout] (c) the microbatch split: one card is dp 1, where a microbatch's rows are this "
+        "rank's own; the point-to-point moves between dp ranks are held to one device on gloo "
+        "processes by tests/test_torch_mesh_rows.py")
+    rng = np.random.default_rng(seed + 2)
+    for row, (B, Hkv, G, T, dh, nvs) in zip(lse_rows, SPLIT_CASES):
+        row["library_ms"] = _lse_library_ms(rng, dev, B, Hkv, G, T, dh, nvs[0])
+        log(f"[layout] (d) decode_attention with LSE at {row['shape']}: kernel {row['ms']:.4f} ms, "
+            f"SDPA's flash attention with its LSE {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms; {smi}")
+    return {"table": table, "mamba2": layer}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3268,6 +3511,10 @@ def main() -> None:
     phase_vocab_split(dev, smi, seed=args.seed, **VOCAB_SPLIT)
     torch.cuda.empty_cache()
     t_vocab = time.perf_counter() - t_vocab
+    t_layout = time.perf_counter()  # phase 16
+    phase_layout(dev, smi, dec["lse"], seed=args.seed)
+    torch.cuda.empty_cache()
+    t_layout = time.perf_counter() - t_layout
     runs = {**{c: r["launches"] for c, r in serves.items()},
             **{f"train {c}": r["launches"] for c, r in trains.items()},
             f"mesh {danube.name} (1x1)": mesh["launches"],
@@ -3282,8 +3529,8 @@ def main() -> None:
     log(f"[done] command phases took {time.perf_counter() - t0:.1f}s, of which phase 7 {t7:.1f}s, "
         f"the mesh phase's (a) and (b) {t_mesh:.1f}s, its (c) and (d), the cp serve and the "
         f"split phases {t_new:.1f}s, the plan phase {t_plan:.1f}s, the sim phase {t_sim:.1f}s, "
-        f"the cluster phase {t_cluster:.1f}s, the cost phase {t_cost:.1f}s and the vocab "
-        f"phase {t_vocab:.1f}s")
+        f"the cluster phase {t_cluster:.1f}s, the cost phase {t_cost:.1f}s, the vocab "
+        f"phase {t_vocab:.1f}s and the layout phase {t_layout:.1f}s")
     # launches: each main-path run's counts (set to 0 before it, read after it), summed
     # over the serve runs, the training runs, the mesh runs (each rank's), the
     # cluster phase's replicas and handoffs and the cost phase's step

@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
-from repro_torch.parallel.axes import ce_combine, on_shards, shard
+from repro_torch.parallel.axes import (ce_combine, on_local, on_shards, reduce_parts, shard,
+                                       shard_range)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -68,10 +70,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def embed_lookup(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The token rows, JAX's `tok[tokens]`. `F.embedding`, whose backward adds a
     repeated token's rows in a fixed order on the CPU and on CUDA (indexing's
-    backward adds them in a varying order on the CPU). On a mesh the table is
-    vocab-sharded over tp: each rank looks up its rows and the sum over tp
-    (`shard`) gives every token's row."""
-    return shard(F.embedding(tokens, p["tok"]).to(dtype), "dp", "sp", None)
+    backward adds them in a varying order on the CPU). On a mesh whose tp splits
+    the table over the vocabulary, each rank looks up the tokens of its block and
+    the rows are summed over tp (`VocabParallelEmbedding`): the table's gradient
+    is formed on each rank's block alone."""
+    tok = p["tok"]
+    v0, _, split = shard_range(tok, 0)
+    split = tuple(d for d in split if tok.device_mesh.size(d) > 1)
+    if not split:
+        return shard(F.embedding(tokens, tok).to(dtype), "dp", "sp", None)
+    mesh = tok.device_mesh
+    rows = [Replicate() if d in split else pl for d, pl in enumerate(tokens.placements)]
+    out = on_local(lambda t, x: VocabParallelEmbedding.apply(t, x, v0, dtype, mesh, split),
+                   tok, tokens.redistribute(mesh, rows), out=[rows])
+    return shard(out, "dp", "sp", None)
+
+
+class VocabParallelEmbedding(torch.autograd.Function):
+    """The token rows of a table split over the vocabulary, in `dtype`: on each
+    block of rows (table (Vb, d), the rows of the ids v0 .. v0 + Vb - 1, the tokens
+    over the whole vocabulary) the rows of its tokens and zeros for the others,
+    summed over the ranks of the mesh dims `dims` (none with `mesh` None: one
+    block's part), which is exact, one part a token being non-zero. The backward
+    forms the block's gradient alone, (Vb, d), with `F.embedding`'s backward and
+    its fixed-order adds of a repeated token's rows; the tokens of other blocks
+    add theirs to one more row, which is dropped, so no row of the block takes a
+    term that the whole table's would not."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, v0, dtype, mesh, dims):
+        Vb = table.shape[0]
+        i = tokens - v0
+        inside = (i >= 0) & (i < Vb)
+        ctx.save_for_backward(torch.where(inside, i, Vb))
+        ctx.Vb, ctx.table_dtype = Vb, table.dtype
+        rows = F.embedding(i.clamp(0, Vb - 1), table).masked_fill_(~inside[..., None], 0).to(dtype)
+        return rows if mesh is None else reduce_parts(rows, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        grad = torch.ops.aten.embedding_dense_backward(g.to(ctx.table_dtype), idx, ctx.Vb + 1, -1,
+                                                       False)
+        return grad[:ctx.Vb], None, None, None, None, None
 
 
 def lm_logits(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

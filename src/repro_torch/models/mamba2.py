@@ -28,9 +28,11 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.axes import (axes_size, is_dtensor, on_local, regrid, shard, shard_range,
+from repro_torch.parallel.axes import (SumOverRanks, activation_pspec, axes_size, block_of,
+                                       is_dtensor, on_local, placements, regrid, shard, shard_range,
                                        write)
 
 
@@ -42,19 +44,31 @@ def dims(cfg: ModelConfig):
     return d_inner, H, conv_dim
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    """(..., d_in_proj) -> z, x, B, C, dt."""
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, H: int | None = None,
+                G: int | None = None):
+    """(..., d_in_proj) -> z, x, B, C, dt; of H heads and G groups (all by default:
+    a rank's own columns on a mesh)."""
     s = cfg.ssm
-    d_inner, H, _ = dims(cfg)
-    gn = s.n_groups * s.d_state
-    return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, H], dim=-1)
+    H = dims(cfg)[1] if H is None else H
+    G = s.n_groups if G is None else G
+    di, gn = H * s.head_dim, G * s.d_state
+    return torch.split(zxbcdt, [di, di, gn, gn, H], dim=-1)
 
 
-def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-5):
+def _gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y * silu(z) in the compute dtype, as float32: the gated norm's input."""
+    return (y * F.silu(z)).float()
+
+
+def _norm_out(scale: torch.Tensor, yf: torch.Tensor, ms: torch.Tensor, dtype, eps: float = 1e-5):
+    """The gated norm of `_gate`'s yf at its mean of squares ms, cast to `dtype`."""
+    return (yf * torch.rsqrt(ms + eps) * scale).to(dtype)
+
+
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
     """RMSNorm of y * silu(z): the product in the compute dtype, the norm in float32."""
-    yf = (y * F.silu(z)).float()
-    ms = yf.square().mean(dim=-1, keepdim=True)
-    return (yf * torch.rsqrt(ms + eps) * scale).to(y.dtype)
+    yf = _gate(y, z)
+    return _norm_out(scale, yf, yf.square().mean(dim=-1, keepdim=True), y.dtype)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -76,23 +90,27 @@ def _heads_split(cfg: ModelConfig) -> str | None:
     return "tp" if ok else None
 
 
-def _conv(cfg: ModelConfig, zxbcdt: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor):
+def _conv(cfg: ModelConfig, zxbcdt: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
+          H: int | None = None, G: int | None = None):
     """The in-projection split and the depthwise causal conv over (x, B, C), a sum of W
     shifts in the compute dtype: (z, xh (B, S, H, P), B, C (B, S, G, N), dt raw
     (B, S, H), the decode-ready conv state (B, conv_dim, W - 1): the last W - 1
-    rows of the zero-left-padded pre-conv input)."""
+    rows of the zero-left-padded pre-conv input). H heads and G groups, all by
+    default; the conv is depthwise, so any set of its columns, with their rows of
+    `cw` and `cb`, computes the same numbers."""
     s = cfg.ssm
-    d_inner, H, _ = dims(cfg)
-    G, N, P, W = s.n_groups, s.d_state, s.head_dim, s.conv_width
+    H = dims(cfg)[1] if H is None else H
+    G = s.n_groups if G is None else G
+    N, P, W = s.d_state, s.head_dim, s.conv_width
     B_, S, _ = zxbcdt.shape
     dt_c = zxbcdt.dtype
-    z, xc, Bm, Cm, dtr = _split_proj(cfg, zxbcdt)
+    z, xc, Bm, Cm, dtr = _split_proj(cfg, zxbcdt, H, G)
     conv_in = F.pad(torch.cat([xc, Bm, Cm], dim=-1), (0, 0, W - 1, 0))  # (B, S + W - 1, conv_dim)
     cw = cw.to(dt_c)
     conv = sum(conv_in[:, i:i + S] * cw[:, i] for i in range(W))
     xbc = F.silu(conv + cb.to(dt_c))
     conv_state = conv_in[:, S:].transpose(1, 2).contiguous()
-    xh, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+    xh, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
     return (z, xh.reshape(B_, S, H, P), Bm.reshape(B_, S, G, N), Cm.reshape(B_, S, G, N), dtr,
             conv_state)
 
@@ -176,6 +194,62 @@ def _per_head(cfg, h, xh, dtr, z, Bm, Cm, p):
             *(shard(p[k], h) for k in ("a_log", "d_skip", "dt_bias")), shard(p["norm"], h), own)
 
 
+def own_columns(cfg: ModelConfig, h0: int, n: int, device):
+    """The columns that heads h0 .. h0 + n - 1 read, as index tensors: of the
+    in-projection's output [z | x | B | C | dt] (their z, x and dt, the B and C of
+    their groups) and of the conv's input [x | B | C]; and the number of groups."""
+    s = cfg.ssm
+    d_inner, H, _ = dims(cfg)
+    P, N, G = s.head_dim, s.d_state, s.n_groups
+    hpg = H // G
+    g0, g1 = h0 // hpg, (h0 + n - 1) // hpg + 1
+    heads = torch.arange(h0 * P, (h0 + n) * P, device=device)
+    groups = torch.arange(g0 * N, g1 * N, device=device)
+    conv = torch.cat([heads, d_inner + groups, d_inner + G * N + groups])
+    dt = torch.arange(2 * d_inner + 2 * G * N + h0, 2 * d_inner + 2 * G * N + h0 + n, device=device)
+    return torch.cat([heads, d_inner + conv, dt]), conv, g1 - g0
+
+
+def heads_in(cfg, chunk, proj, conv, groups, state_cols, x, w_in, cw, cb, a_log, d_skip, dt_bias):
+    """`mamba2_seq` up to the gated norm's statistics on n of the heads (`own_columns`'s
+    `proj` and `conv` columns, `groups` groups), from x (B, S, D), the whole
+    in-projection and conv weights and those heads' rows of the rest: (the gated
+    norm's float32 input yf (B, S, n * P), its sum of squares (B, S, 1), the SSD's
+    final state (B, n, N, P), the decode-ready conv state (B, c, W - 1) of the c
+    columns `state_cols` of [x | B | C], from the last W - 1 tokens alone: a
+    rank's share of the state as the cache splits it, not its heads')."""
+    s = cfg.ssm
+    d_inner = dims(cfg)[0]
+    W, dt_c = s.conv_width, x.dtype
+    n = a_log.shape[0]
+    z, xh, Bm, Cm, dtr, _ = _conv(cfg, x @ w_in[:, proj].to(dt_c), cw[conv], cb[conv], n, groups)
+    y, state = _ssd(chunk, xh, dtr, Bm, Cm, a_log, d_skip, dt_bias)
+    yf = _gate(y, z)
+    last = x[:, -(W - 1):].transpose(1, 2)  # (B, D, <= W - 1)
+    conv_state = w_in[:, d_inner + state_cols].to(dt_c).T @ last  # (B, c, <= W - 1)
+    return (yf, yf.square().sum(dim=-1, keepdim=True), state,
+            F.pad(conv_state, (W - 1 - last.shape[-1], 0)))
+
+
+def heads_out(norm, yf, ms, w_out, dtype):
+    """Those heads' part of the output projection (B, S, D), from `heads_in`'s yf, the
+    mean of squares over every head ms and their rows of the norm and of w_out."""
+    return _norm_out(norm, yf, ms, dtype) @ w_out.to(dtype)
+
+
+def _seq_on_heads(cfg, chunk, proj, conv, groups, state_cols, mesh, tp, x, w_in, cw, cb, a_log,
+                  d_skip, dt_bias, norm, w_out):
+    """`mamba2_seq` on a rank's own heads, the local function of the mesh path:
+    `heads_in`, the sums of squares summed over the ranks of the mesh dims `tp`,
+    `heads_out`, summed likewise. Returns (the output (B, S, D), the SSD's final
+    state, the conv state)."""
+    yf, ssq, state, conv_state = heads_in(cfg, chunk, proj, conv, groups, state_cols, x, w_in, cw,
+                                          cb, a_log, d_skip, dt_bias)
+    ms = SumOverRanks.apply(ssq, mesh, tp, True) / dims(cfg)[0]
+    out = SumOverRanks.apply(heads_out(norm, yf, ms, w_out, x.dtype), mesh, tp, False)
+    return out, state, conv_state
+
+
 def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
     """Full-sequence SSD. x: (B, S, D) -> (y (B, S, D), {"ssd" (B, H, N, P) fp32,
     "conv" (B, conv_dim, W - 1)}).
@@ -183,16 +257,41 @@ def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
     On a mesh (JAX's shard sites: xh on ("dp", None, "tp", None), the output on
     ("dp", "sp", None)) the sequence is gathered whole (sequence parallelism
     splits it between blocks, and the conv needs the previous rank's last W - 1
-    rows), the conv runs on every column, and the SSD on each rank's heads
-    (`_heads_split`) and their groups of B and C; the gated norm's mean over
-    d_inner then sums across them."""
+    rows). Where the heads split over tp (`_heads_split`), each rank runs the
+    layer on its own columns alone (`_seq_on_heads`: its heads' z, x and dt and
+    their groups' B and C, from the whole weights gathered over tp, so that the
+    gradients of the columns that ranks share, a group's B and C, sum over them;
+    the gated norm's mean and the output projection summed over tp by hand), and
+    the columns of the small conv state that the cache holds on it. Elsewhere
+    the conv runs on every column and the SSD on the whole heads, the gated
+    norm's mean over d_inner summing across the ranks' heads."""
     dt_c = x.dtype
     x = shard(x, "dp", None, None)
+    h = _heads_split(cfg)
+    if h is not None and is_dtensor(x):
+        mesh = x.device_mesh
+        a_log, d_skip, dt_bias, norm = (shard(p[k], h)
+                                        for k in ("a_log", "d_skip", "dt_bias", "norm"))
+        h0, n, split = shard_range(a_log, 0)
+        proj, conv, groups = own_columns(cfg, h0, n, x.device)
+        # this rank's share of the conv state, as `mamba2_state_specs` places it
+        conv_dim, W = dims(cfg)[2], cfg.ssm.conv_width
+        state_pl = placements(activation_pspec(("dp", "tp", None), (x.shape[0], conv_dim, W - 1),
+                                               mesh), mesh)
+        c0, c = block_of(mesh.get_coordinate(), state_pl, mesh, conv_dim, dim=1)
+        whole = (shard(p[k], *(None,) * p[k].dim()) for k in ("w_in", "conv_w", "conv_b"))
+        heads = [Shard(1) if isinstance(pa, Shard) else px  # the SSD state's placements
+                 for px, pa in zip(x.placements, a_log.placements)]
+        y, state, conv_state = on_local(
+            functools.partial(_seq_on_heads, cfg, chunk, proj, conv, groups,
+                              torch.arange(c0, c0 + c, device=x.device), mesh, split),
+            x, *whole, a_log, d_skip, dt_bias, norm, shard(p["w_out"], h, None),
+            out=[x.placements, heads, state_pl])
+        return shard(y, "dp", "sp", None), {"ssd": state, "conv": conv_state}
     zxbcdt, cw, cb = _whole_cols(x @ p["w_in"].to(dt_c), p)
     outs = on_local(functools.partial(_conv, cfg), zxbcdt, cw, cb,
                     out=[getattr(zxbcdt, "placements", None)] * 6)
     z, xh, Bm, Cm, dtr, conv_state = outs
-    h = _heads_split(cfg)
     xh, dtr, z, Bm, Cm, a_log, d_skip, dt_bias, norm, own = _per_head(cfg, h, xh, dtr, z, Bm, Cm,
                                                                        p)
     pl = getattr(xh, "placements", None)  # (B, S, H, P): y (B, S, H * P), the state (B, H, N, P)

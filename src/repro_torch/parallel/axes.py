@@ -27,10 +27,13 @@ vocab-split logits over tp (`ce_combine`).
 `local_map`: the kernels' autograd Functions and the per-head or per-row code
 around them, per-head parameters (Mamba2's and RWKV6's) on their own shards.
 `write` fills a placed cache or state in place, shard by shard; `shard_range`
-is a rank's part of a split dim. `lse_combine` joins the partial outputs of
-ranks that hold parts of a KV cache's length, as flash-decode joins its
-splits, and `ce_combine` the CE's parts of ranks that hold blocks of the
-vocabulary; both also join parts on a leading dim (`reduce_parts`). A mesh also
+and `block_of` give a rank's part of a split dim; `take_rows` moves a block
+of a batch's rows to the ranks that need them, point to point.
+`lse_combine` joins the partial outputs of ranks that hold parts of a KV
+cache's length, as flash-decode joins its splits, and `ce_combine` the CE's
+parts of ranks that hold blocks of the vocabulary; both also join parts on a
+leading dim (`reduce_parts`). `SumOverRanks` sums a local function's parts
+over ranks, with the backward its use needs. A mesh also
 stands for a stand-in object with a `shape` dict (axis -> size), which is all
 that `axes_size`, `sanitize_pspec` and the ZeRO-1 specs read.
 """
@@ -38,6 +41,8 @@ that `axes_size`, `sanitize_pspec` and the ZeRO-1 specs read.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import math
 from dataclasses import dataclass
 
@@ -46,6 +51,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 @dataclass(frozen=True)
@@ -283,11 +289,67 @@ def shard_range(t, dim: int):
         return 0, t.shape[dim], ()
     mesh = t.device_mesh
     dims = tuple(i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim)
-    coord, part, parts = mesh.get_coordinate(), 0, 1
-    for i in dims:
-        part, parts = part * mesh.size(i) + coord[i], parts * mesh.size(i)
-    n = t.shape[dim] // parts
-    return part * n, n, dims
+    return (*block_of(mesh.get_coordinate(), t.placements, mesh, t.shape[dim], dim), dims)
+
+
+def block_of(coord, pl, mesh, n: int, dim: int = 0) -> tuple[int, int]:
+    """(first, count) of the part of a dim `dim` of `n` that the rank at mesh
+    coordinate `coord` holds under placements `pl`: its part where mesh dims shard
+    the dim (major to minor, evenly), all of it elsewhere."""
+    part, parts = 0, 1
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            part, parts = part * mesh.size(i) + coord[i], parts * mesh.size(i)
+    return part * (n // parts), n // parts
+
+
+def take_rows(t, start: int, stop: int, pl):
+    """Rows [start, stop) of dim 0 of a DTensor `t`, as a DTensor placed `pl` (dim 0
+    sharded over mesh dims that shard it in `t`, or not sharded; replicated on
+    every other mesh dim, as `t` is). Each rank receives its part of the rows
+    from the ranks that hold them, point to point within the ranks that differ
+    from it only on the mesh dims sharding `t`'s rows (a collective-permute), and
+    keeps what it holds itself: no rank forms more of `t` than its part of the
+    result. Not differentiable (a batch's rows)."""
+    mesh = t.device_mesh
+    own = tuple(i for i, p in enumerate(t.placements) if isinstance(p, Shard))
+    if any(t.placements[i].dim != 0 for i in own) or any(
+            isinstance(p, Shard) and i not in own for i, p in enumerate(pl)):
+        raise ValueError(f"take_rows moves rows of dim 0 only: {t.placements} -> {pl}")
+    me, n = list(mesh.get_coordinate()), stop - start
+    with _disable_current_modes():  # the rank grid is a real tensor, also under a fake mode
+        ranks = mesh.mesh.tolist()
+    peers = []  # (global rank, coordinate) of the ranks that differ from this one on `own`
+    for c in itertools.product(*(range(mesh.size(i)) for i in own)):
+        coord = list(me)
+        for i, ci in zip(own, c):
+            coord[i] = ci
+        peers.append((functools.reduce(list.__getitem__, coord, ranks), coord))
+    local = t.to_local()
+    h0, hn = block_of(me, t.placements, mesh, t.shape[0])  # the rows this rank holds
+    t0, tn = block_of(me, pl, mesh, n)  # and those of the result it needs
+    t0 += start
+    out = local.new_empty((tn, *local.shape[1:]))
+    ops = []
+    with torch.no_grad():
+        for rank, coord in peers:
+            s0, sn = block_of(coord, t.placements, mesh, t.shape[0])
+            lo, hi = max(t0, s0), min(t0 + tn, s0 + sn)  # the peer's rows that this rank needs
+            if coord == me:
+                if lo < hi:
+                    out[lo - t0:hi - t0] = local[lo - h0:hi - h0]
+                continue
+            if lo < hi:
+                ops.append(dist.P2POp(dist.irecv, out[lo - t0:hi - t0], rank))
+            q0, qn = block_of(coord, pl, mesh, n)
+            lo, hi = max(start + q0, h0), min(start + q0 + qn, h0 + hn)  # this rank's it needs
+            if lo < hi:
+                ops.append(dist.P2POp(dist.isend, local[lo - h0:hi - h0].contiguous(), rank))
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+    shape = (n, *t.shape[1:])
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 _REDUCE = {"max": (dist.ReduceOp.MAX, torch.amax), "min": (dist.ReduceOp.MIN, torch.amin),
@@ -305,6 +367,27 @@ def reduce_parts(t, op: str, mesh=None, dims=()):
     for d in dims:
         dist.all_reduce(t, op=red, group=mesh.get_group(d))
     return t
+
+
+class SumOverRanks(torch.autograd.Function):
+    """`t` summed over the ranks of the mesh dims `dims` (all-reduces, in float32, as
+    one device's GEMM accumulates its products), the same on every rank, in t's
+    dtype, inside a local function. The backward sums the gradient likewise
+    where each rank goes on to use the sum in a function of its own part
+    (`own_use`: the gradient a rank holds is its own share), and passes it as it
+    is where the ranks go on with the sum as one replicated value (each holds the
+    whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, own_use: bool):
+        ctx.mesh, ctx.dims, ctx.own_use = mesh, dims, own_use
+        return reduce_parts(t.to(torch.float32, copy=True), "sum", mesh, dims).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.own_use:
+            g = reduce_parts(g.to(torch.float32, copy=True), "sum", ctx.mesh, ctx.dims).to(g.dtype)
+        return g, None, None, None
 
 
 def lse_combine(o, lse, mesh=None, dims=()):

@@ -21,8 +21,8 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.models.transformer import Model
-from repro_torch.parallel.axes import (current_mesh, is_dtensor, placements, sanitize_pspec,
-                                       shard)
+from repro_torch.parallel.axes import (activation_pspec, current_mesh, is_dtensor, placements,
+                                       sanitize_pspec, take_rows)
 from repro_torch.parallel.compression import compress_gradients
 from repro_torch.train.optimizer import _zero1_spec, adamw_update
 from repro_torch.train.tree import leaves, tree_map
@@ -39,13 +39,15 @@ def _unflatten(tree: dict, flat: list):
 
 
 def _rows(v: torch.Tensor, start: int, stop: int) -> torch.Tensor:
-    """Rows [start, stop) of a batch tensor: a microbatch. On a mesh it is a block of
-    the global batch's rows, placed over dp again; slicing a dim sharded over dp has
-    no DTensor strategy, so the (integer or embedding) batch is gathered first."""
+    """Rows [start, stop) of a batch tensor: a microbatch, JAX's reshape of the global
+    batch. On a mesh the rows are placed over dp as the model places its inputs
+    (`activation_pspec`), each rank receiving its own from the rank that holds
+    them (`take_rows`): no rank gathers the batch."""
     if not is_dtensor(v):
         return v[start:stop]
-    rest = (None,) * (v.dim() - 1)
-    return shard(shard(v, None, *rest)[start:stop], "dp", *rest)
+    names = ("dp",) + (None,) * (v.dim() - 1)
+    spec = activation_pspec(names, (stop - start, *v.shape[1:]), v.device_mesh)
+    return take_rows(v, start, stop, placements(spec, v.device_mesh))
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict, remat: str | None = None):
@@ -90,15 +92,18 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
         B = next(iter(batch.values())).shape[0]
         if B % n:
             raise ValueError(f"batch {B} is not a multiple of microbatches {n}")
-        micro = [{k: _rows(v, i * (B // n), (i + 1) * (B // n)) for k, v in batch.items()}
-                 for i in range(n)]
+        mb = B // n
+
+        def micro(i):  # made when it is used, so one microbatch is alive at a time
+            return {k: _rows(v, i * mb, (i + 1) * mb) for k, v in batch.items()}
+
         # the first microbatch seeds the accumulators, as JAX's scan does
-        g0, m0 = grads_of(params, micro[0])
+        g0, m0 = grads_of(params, micro(0))
         g_acc = tree_map(lambda a: a.float() / n, g0)
         m_acc = {k: v / n for k, v in m0.items()}
         del g0
-        for mb in micro[1:]:
-            g, m = grads_of(params, mb)
+        for i in range(1, n):
+            g, m = grads_of(params, micro(i))
             g_acc = tree_map(lambda a, b: a + b.float() / n, g_acc, g)
             m_acc = {k: m_acc[k] + m[k] / n for k in m_acc}
         return g_acc, m_acc

@@ -652,3 +652,25 @@ def test_vocab_parallel_ce_on_cuda_matches_the_whole(dev, capsys):
     assert max(out[k] for k in ("loss", "nll", "dx", "dw")) <= chip_smoke.VOCAB_TOL, out
     assert out["block_gib"] < out["whole_gib"] / 4, out
     assert "argmax differs at 0 of 1024 tokens" in capsys.readouterr().out
+
+
+def test_layout_parts_on_cuda_match_the_whole(dev, capsys):
+    """`chip_smoke.py`'s phase 16 (LAYOUT_NOTE) at smaller sizes on CUDA: a token
+    table of (32768, 1024) in 16 vocab blocks through `VocabParallelEmbedding`,
+    its lookup and gradient rows equal to `F.embedding`'s over the whole table bit
+    for bit; zamba2's Mamba2 layer at full width on x (2, 512, 2048) as tp 16's
+    head shards within twice its bf16 floor leaf by leaf."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    table = chip_smoke.phase_layout_table(dev, "test", vocab=32768, d=1024, batch=2, seq=512,
+                                          blocks=16)
+    assert table["lookup_equal"] and table["grad_exact"] == 16, table
+    assert table["block_gib"] < table["whole_gib"], table
+    layer = chip_smoke.phase_layout_mamba2(dev, "test", get_config("zamba2_1p2b"), batch=2, seq=512,
+                                           tp=16)
+    assert layer["worst_floors"] <= 2 and layer["shard_gib"] < layer["whole_gib"], layer
+    assert "16 of 16" in capsys.readouterr().out

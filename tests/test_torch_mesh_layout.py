@@ -60,8 +60,8 @@ ZAMBA2_G2 = get_config("zamba2_1p2b").reduced(
 class LocalShapes(TorchDispatchMode):
     """Records the shape of every tensor an op makes on this rank's local tensors
     (ops on DTensors are handed back, so that their local ops come through; the
-    fake stand-ins of global shapes that DTensor's sharding propagation makes hold
-    no data and are left out)."""
+    fake and meta stand-ins of global shapes that DTensor's sharding propagation
+    makes hold no data and are left out)."""
 
     def __init__(self):
         super().__init__()
@@ -72,7 +72,8 @@ class LocalShapes(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
         self.shapes.update(tuple(t.shape) for t in tree_leaves(out)
-                           if isinstance(t, torch.Tensor) and not isinstance(t, FakeTensor))
+                           if isinstance(t, torch.Tensor) and not isinstance(t, FakeTensor)
+                           and t.device.type != "meta")
         return out
 
 
