@@ -102,7 +102,10 @@ Phases, each of which fails the run with a non-zero exit:
                beside MFU_NOTE's; (b) the port's copy of the analytical H100
                model beside phase 7's training runs (step s, peak memory) and
                phase 5's serves (prefill s, decode ms); (c) `launch.train
-               --auto-plan` for 8 H100s in a subprocess.
+               --auto-plan` for 8 H100s in a subprocess; (d) the same step as
+               (a) at 2 microbatches: the traced peak within 10% of the card's,
+               the accumulated gradients bit for bit those of the former
+               `tree_map` accumulation of the same microbatches' gradients.
  12. sim     - the port's serving simulator beside phase 5's serves (SIM_NOTE):
                (a) the simulated schedule of each serve's requests equals the
                engine's (decode steps, admissions, FCFS order, tokens); (b) each
@@ -129,7 +132,11 @@ Phases, each of which fails the run with a non-zero exit:
                `core.cellcost.cell_cost` for the H100 beside phase 7's runs,
                phase 5's serves and phase 11 (a)'s cell; (c) a 2-layer
                h2o-danube training step on a one-rank NCCL mesh under
-               `CollectiveInventory`, equal to the dry-run's trace of the cell.
+               `CollectiveInventory`, equal to the dry-run's trace of the cell;
+               (d) `torch.ops._dtensor.shard_dim_alltoall` (DTensor's Shard ->
+               Shard move) of a bf16 tensor on that group: one all-to-all of
+               its result's bytes in the inventory, the output the input; the
+               dry-run's all-to-all helper opens on this torch and closes.
  15. vocab   - the vocab-parallel CE a tp mesh runs (VOCAB_NOTE): minitron-8b's
                head at full width on one chunk, its logits cut into 16 vocab
                blocks on a leading dim, each through the mesh path's local
@@ -2239,14 +2246,22 @@ def _lse_timing(rng, dev, B, Hkv, G, T, dh, nv) -> dict:
 # slots, the mean prompt and the new tokens; prefill from its TTFT, decode from
 # its TPOT), printed beside what the card measured, with the ratio; printed, not
 # barred. (c) `launch.train --auto-plan` in a subprocess (AUTO_PLAN): it must exit
-# 0 and print at least one plan.
+# 0 and print at least one plan. (d) The step of (a) at PLAN_MICRO microbatches,
+# whose float32 gradients are accumulated in place, a leaf at a time (ROADMAP
+# C19): its traced peak against the card's within PLAN_MEM_TOL, the float32
+# accumulator's bytes printed beside both; and one step whose microbatch
+# gradients are kept as autograd gives them, so that the accumulated gradients,
+# loss and metrics are held bit for bit to the former accumulation's (a new
+# float32 tree a microbatch, `a + b.float() / n`) of those same gradients.
 PLAN_MEM = dict(layers=2, batch=2, seq=6144, remat="selective")
+PLAN_MICRO = 2
 PLAN_MEM_TOL = 0.10
 AUTO_PLAN = ["-m", "repro_torch.launch.train", "--arch", "h2o-danube-1.8b", "--auto-plan",
              "--chips", "8", "--hardware", "h100", "--batch", "16", "--seq", "4096"]
 
 
-def _step_peak(dev, cfg, batch: int, seq: int, remat: str, seed: int = 0) -> int:
+def _step_peak(dev, cfg, batch: int, seq: int, remat: str, seed: int = 0,
+               microbatches: int = 1) -> int:
     """Peak allocated bytes of one real training step with `kernels=False` on `dev`,
     the state (params in their training dtypes, fp32 moments) and the batch
     included: a warm-up step, a reset of the peak, a second step."""
@@ -2260,7 +2275,7 @@ def _step_peak(dev, cfg, batch: int, seq: int, remat: str, seed: int = 0) -> int
     data = SyntheticLM(cfg.vocab_size, seq, batch).batch(0)
     batch_t = {k: torch.as_tensor(np.asarray(v), dtype=torch.int32, device=dev)
                for k, v in data.items()}
-    step = make_train_step(model, ParallelConfig(remat=remat), tcfg)
+    step = make_train_step(model, ParallelConfig(remat=remat, microbatches=microbatches), tcfg)
     state, _ = step(state, batch_t)  # the warm-up: the library workspaces are made here
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2302,6 +2317,96 @@ def phase_plan_memory(dev, smi, *, layers=2, batch=2, seq=6144, remat="selective
                              f"the measured {measured} B")
     return {"traced": traced, "measured": measured, "ratio": ratio, "flops": flops,
             "model_flops": model_flops}
+
+
+def _accumulation_alike(dev, cfg, batch: int, seq: int, remat: str, microbatches: int,
+                        seed: int = 0) -> dict:
+    """PLAN_NOTE (d)'s bits: one step of `cfg` at `microbatches` with each
+    microbatch's gradients copied as autograd gives them and the optimizer skipped;
+    the step's accumulated gradients and metrics against the former accumulation
+    of those copies. Returns the leaves that differ and the metrics that differ."""
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves, tree_map
+
+    model = Model(cfg, kernels=False)
+    tcfg = TrainConfig()
+    state = {"params": model.init(seed, dev, widen_head=False)}
+    state["opt"] = adamw_init(state["params"], tcfg)
+    data = SyntheticLM(cfg.vocab_size, seq, batch).batch(0)
+    batch_t = {k: torch.as_tensor(np.asarray(v), dtype=torch.int32, device=dev)
+               for k, v in data.items()}
+    parts, handed = [], []
+    grads_of, update = ts.loss_and_grads, ts.adamw_update
+
+    def kept(*a, **k):
+        g, m = grads_of(*a, **k)
+        parts.append((tree_map(torch.clone, g), dict(m)))
+        return g, m
+
+    def skipped(params, grads, opt, tcfg):
+        handed.append(grads)
+        return params, opt, {}
+
+    ts.loss_and_grads, ts.adamw_update = kept, skipped
+    try:
+        step = make_train_step(model, ParallelConfig(remat=remat, microbatches=microbatches), tcfg)
+        _, metrics = step(state, batch_t)
+    finally:
+        ts.loss_and_grads, ts.adamw_update = grads_of, update
+    n = microbatches
+    g_old = tree_map(lambda a: a.float() / n, parts[0][0])
+    m_old = {k: v / n for k, v in parts[0][1].items()}
+    for g, m in parts[1:]:
+        g_old = tree_map(lambda a, b: a + b.float() / n, g_old, g)
+        m_old = {k: m_old[k] + m[k] / n for k in m_old}
+    grads = dict(paths(handed[0]))
+    return {"microbatches": len(parts),
+            "leaves": len(grads),
+            "dtypes": sorted({str(t.dtype) for t in leaves(handed[0])}),
+            "grads_differ": [k for k, v in paths(g_old)
+                             if not (grads[k].dtype == v.dtype and torch.equal(grads[k], v))],
+            "metrics_differ": [k for k in m_old if not torch.equal(metrics[k], m_old[k])]}
+
+
+def phase_plan_accumulate(dev, smi, *, layers=2, batch=2, seq=6144, remat="selective",
+                          microbatches=PLAN_MICRO, measure=_step_peak, cfg=None) -> dict:
+    """PLAN_NOTE (d): phase 11 (a)'s step at `microbatches`: the traced peak against
+    the card's measured peak (`measure`), within PLAN_MEM_TOL, beside the float32
+    accumulator's bytes; the accumulated gradients and metrics bit for bit the
+    former accumulation's of the same microbatch gradients."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.params import param_shapes
+    from repro_torch.parallel.axes import ShardingRules
+
+    cfg = dataclasses.replace(cfg or get_config("h2o_danube_1p8b"), num_layers=layers)
+    shape = ShapeSpec("plan", seq, batch, "train")
+    trace = trace_cell(cfg, shape, None, ShardingRules(), policy=(microbatches, remat),
+                       log=lambda *_: None)
+    traced = trace["memory"]["peak_bytes_per_device"]
+    measured = measure(dev, cfg, batch, seq, remat, microbatches=microbatches)
+    acc = 4 * sum(int(np.prod(s)) for _, s in paths(param_shapes(param_defs(cfg))))
+    ratio = traced / measured
+    alike = _accumulation_alike(dev, cfg, batch, seq, remat, microbatches)
+    log(f"[plan] (d) {cfg.name} L{layers} B{batch} x S{seq}, remat {remat}, {microbatches} "
+        f"microbatches, kernels=False: dry-run trace peak {traced} B ({traced / 2**30:.3f} GiB) "
+        f"against max_memory_allocated {measured} B ({measured / 2**30:.3f} GiB) on "
+        f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev} ({smi}): ratio "
+        f"{ratio:.4f} (bar 1 +- {PLAN_MEM_TOL}); the float32 accumulator {acc} B "
+        f"({acc / 2**30:.3f} GiB, one tree); accumulated in place against the former "
+        f"tree_map form over the same {alike['microbatches']} microbatch gradients: "
+        f"{alike['leaves'] - len(alike['grads_differ'])} of {alike['leaves']} leaves "
+        f"({', '.join(alike['dtypes'])}) bit for bit, metrics differing: "
+        f"{alike['metrics_differ'] or 'none'}; traced in {trace['trace_s']} s")
+    if abs(ratio - 1) > PLAN_MEM_TOL:
+        raise AssertionError(f"plan (d): traced peak {traced} B is not within {PLAN_MEM_TOL:.0%} "
+                             f"of the measured {measured} B")
+    if alike["grads_differ"] or alike["metrics_differ"] or alike["microbatches"] != microbatches:
+        raise AssertionError(f"plan (d): the in-place accumulation differs from the former "
+                             f"form: {alike}")
+    return {"traced": traced, "measured": measured, "ratio": ratio, "accumulator": acc, **alike}
 
 
 def phase_plan_model(smi, serves: dict, trains: dict, serve_shapes: dict, train_runs: dict,
@@ -2903,10 +3008,18 @@ def phase_cluster(dev, smi: str, *, seed=0) -> dict:
 # redistribution is a no-op, so both may be zero, and zero must equal zero); the
 # step's loss finite and every kernel of the training path launched. The CPU tests
 # hold the same equality on (data 2, model 2) gloo processes
-# (`tests/test_torch_cellcost_hlo.py`).
+# (`tests/test_torch_cellcost_hlo.py`). (d) On a one-rank NCCL group,
+# `torch.ops._dtensor.shard_dim_alltoall` (the op DTensor dispatches for a Shard ->
+# Shard move on a CUDA mesh) of a bf16 tensor of ALLTOALL_SHAPE under the
+# inventory: exactly one all-to-all of the result's bytes (ROADMAP C18: it was
+# recorded as nothing), and the output equal to the input (one rank: the gather
+# and the shard leave it whole); `launch.dryrun.shard_moves_as_alltoall`, which
+# makes such a move on a CPU mesh this op (C17), opens on this torch (it finds
+# the call it replaces) and puts DTensor's function back on exit.
 LINT_GATE = ["-m", "repro_torch.lint"]
 LINT_RULES = 11
 COST_CELL = dict(layers=2, batch=2, seq=6144, remat="selective")
+ALLTOALL_SHAPE = (4096, 2048)
 
 
 def phase_lint(root: Path = ROOT, timeout: float = 300.0) -> list[str]:
@@ -3032,6 +3145,44 @@ def phase_inventory(dev, smi: str, *, cfg=None, layers=2, batch=2, seq=6144, rem
         raise AssertionError(f"cost (c): kernels never launched on the main path: {missing}")
     return {"executed": out["collectives"], "traced": traced["collectives"], "step_s": step_s,
             "launches": launches}
+
+
+def phase_alltoall(dev, smi: str, *, shape=ALLTOALL_SHAPE, backend="nccl", init_method=None,
+                   seed=0) -> dict:
+    """COST_NOTE (d): the Shard -> Shard all-to-all on a one-rank `backend` group under
+    the inventory, and the dry-run's helper opened and closed."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    from repro_torch.core.hlo import CollectiveInventory
+    from repro_torch.launch.dryrun import shard_moves_as_alltoall
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev, torch.bfloat16)
+    inventory = CollectiveInventory()
+    _one_rank_group(backend, init_method)
+    try:
+        with inventory:
+            out = torch.ops._dtensor.shard_dim_alltoall(x, 0, 1, dist.group.WORLD.group_name)
+        if dev.type == "cuda":
+            sync()
+    finally:
+        dist.destroy_process_group()
+    recorded = [(o.kind, o.bytes, o.shape) for o in inventory.ops]
+    want = [("all-to-all", out.numel() * out.element_size())]
+    same = out.shape == x.shape and torch.equal(out, x)
+    with shard_moves_as_alltoall():
+        opened = placement_types.shard_dim_alltoall is not _collective_utils.shard_dim_alltoall
+    closed = placement_types.shard_dim_alltoall is _collective_utils.shard_dim_alltoall
+    log(f"[cost] (d) torch.ops._dtensor.shard_dim_alltoall of a bf16 {tuple(shape)} tensor on a "
+        f"one-rank {backend} group under the inventory: {recorded} (want {want}); output equal "
+        f"to the input: {same}; shard_moves_as_alltoall on torch {torch.__version__}: opened "
+        f"{opened}, closed {closed} ({smi})")
+    if [r[:2] for r in recorded] != want:
+        raise AssertionError(f"cost (d): the inventory recorded {recorded}, not {want}")
+    if not (same and opened and closed):
+        raise AssertionError(f"cost (d): output equal {same}, helper opened {opened}, "
+                             f"closed {closed}")
+    return {"recorded": recorded, "equal": same}
 
 
 def train_config(arch: str):
@@ -3486,6 +3637,8 @@ def main() -> None:
     t_plan = time.perf_counter()  # phase 11
     plan = phase_plan_memory(dev, smi, **PLAN_MEM)
     torch.cuda.empty_cache()
+    phase_plan_accumulate(dev, smi, **PLAN_MEM)
+    torch.cuda.empty_cache()
     serve_shapes = {full.name: (full, 4, 1000, 32)}  # phase_serve's defaults
     for arch, traffic in SERVE_TRAFFIC.items():
         cfg = get_config(arch)
@@ -3506,6 +3659,7 @@ def main() -> None:
     phase_cost(smi, serves, trains, serve_shapes, train_runs, plan, danube2)
     inventory = phase_inventory(dev, smi, seed=args.seed, **COST_CELL)
     torch.cuda.empty_cache()
+    phase_alltoall(dev, smi, seed=args.seed)
     t_cost = time.perf_counter() - t_cost
     t_vocab = time.perf_counter()  # phase 15
     phase_vocab_split(dev, smi, seed=args.seed, **VOCAB_SPLIT)

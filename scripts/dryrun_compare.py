@@ -7,10 +7,12 @@ Reads the cell records (`<arch>__<shape>__<mesh>.json`) that `python -m
 repro_torch.launch.dryrun --out DIR` writes (for example one sweep of a
 checkout of the parent commit and one of the change) and prints one markdown
 row a cell found in either: the traced peak per rank before and after (GiB),
-their difference, and for a train cell `core.memory.training_memory`'s total
-for the cell's own policy and mesh (the §5.1 model that `pick_train_policy`
-fits to 16e9 x 0.9 bytes). A cell that is missing or in error says so. These
-are CPU traces of fake tensors: no device number. Imports nothing of JAX.
+their difference ("0" where the bytes are equal), whether the flops and the
+collectives (kind by kind, count and bytes) are equal, else the change's, and
+for a train cell `core.memory.training_memory`'s total for the cell's own
+policy and mesh (the §5.1 model that `pick_train_policy` fits to 16e9 x 0.9
+bytes). A cell that is missing or in error says so. These are CPU traces of
+fake tensors: no device number. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,18 +62,35 @@ def model_gib(arch: str, shape_name: str, mesh: str, policy: dict) -> float:
 def main(argv=None) -> None:
     before_dir, after_dir = (Path(a) for a in (argv or sys.argv[1:]))
     before, after = _records(before_dir), _records(after_dir)
-    print("| cell | mesh | before GiB | after GiB | change GiB | training_memory GiB |")
-    print("| --- | --- | --- | --- | --- | --- |")
+    print("| cell | mesh | before GiB | after GiB | change GiB | flops | collectives "
+          "| training_memory GiB |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- |")
     for key in sorted(set(before) | set(after)):
         b, a = before.get(key), after.get(key)
         arch, shape, mesh = key
-        change = "—"
+        change = flops = colls = "—"
         if b and a and b["status"] == a["status"] == "ok":
-            change = (f"{(a['memory']['peak_bytes_per_device'] - b['memory']['peak_bytes_per_device'])
-                         / GIB:+.2f}")
+            d = a["memory"]["peak_bytes_per_device"] - b["memory"]["peak_bytes_per_device"]
+            change = f"{d / GIB:+.3f}" if d else "0"
+            fb, fa = b["cost"]["flops_per_device"], a["cost"]["flops_per_device"]
+            flops = "equal" if fa == fb else f"{fb} -> {fa}"
+            kb, ka = _kinds(b["collectives"]), _kinds(a["collectives"])
+            colls = "equal" if ka == kb else "; ".join(
+                f"{k} {kb.get(k, (0, 0))} -> {ka.get(k, (0, 0))}" for k in sorted(set(ka) | set(kb))
+                if ka.get(k) != kb.get(k))
         policy = (a or b or {}).get("policy")
         model = f"{model_gib(arch, shape, mesh, policy):.2f}" if policy else "—"
-        print(f"| {arch} {shape} | {mesh} | {_peak(b)} | {_peak(a)} | {change} | {model} |")
+        print(f"| {arch} {shape} | {mesh} | {_peak(b)} | {_peak(a)} | {change} | {flops} | {colls} "
+              f"| {model} |")
+
+
+def _kinds(summary: dict) -> dict:
+    """{kind: (count, bytes)} of a record's collectives."""
+    out: dict = {}
+    for op in summary["ops"]:
+        c, n = out.get(op["kind"], (0, 0))
+        out[op["kind"]] = (c + op["count"], n + op["bytes"])
+    return out
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ text functions are the original's, and `tests/test_torch_cellcost_hlo.py` holds
 them to it. The aggregation is `summarize_collectives`, over `CollectiveOp`s
 from any source. The port compiles no HLO, so it adds its own source of them:
 `CollectiveInventory`, a dispatch mode that records each collective a step
-dispatches on this rank (c10d's and the functional collectives'), on a fake
+dispatches on this rank (c10d's, the functional collectives' and DTensor's
+Shard -> Shard all-to-all), on a fake
 world under `FakeTensorMode` (the dry-run) as on a real process group (an
 executed step). Its ops have `loop_depth` 0: the port's layer and chunk loops
 are Python, each iteration an op of its own, so `once_bytes` is the step's whole
@@ -161,8 +162,10 @@ def collective_traffic_bytes(summary: dict, trip_counts: dict[int, int] | int) -
 # functional collectives' result is their return value, c10d's the buffers of
 # their first argument (written in place). A send is left out: the bytes it
 # moves are its peer's result, counted there as a recv, as a collective-permute
-# counts once on each rank. A broadcast has no kind in `COLLECTIVE_KINDS`; it is
-# kept under XLA's name for it.
+# counts once on each rank (a functional `batch_p2p_ops` returns an empty tensor
+# for each send and the buffer of each recv). A broadcast has no kind in
+# `COLLECTIVE_KINDS`; it is kept under XLA's name for it, and c10d's reduce, gather
+# and scatter, which XLA has no name for, under torch's.
 _FUNCTIONAL = {
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
@@ -176,6 +179,7 @@ _FUNCTIONAL = {
     "reduce_scatter_tensor_out": "reduce-scatter",
     "all_to_all_single": "all-to-all",
     "irecv": "collective-permute",
+    "batch_p2p_ops": "collective-permute",
     "broadcast": "collective-broadcast",
     "broadcast_": "collective-broadcast",
 }
@@ -194,9 +198,16 @@ _C10D = {
     "recv_": "collective-permute",
     "recv_any_source_": "collective-permute",
     "broadcast_": "collective-broadcast",
+    "reduce_": "reduce",
+    "gather_": "gather",
+    "scatter_": "scatter",
 }
+# DTensor's Shard -> Shard move on a CUDA mesh (`_collective_utils.shard_dim_alltoall`,
+# and on a CPU mesh under `launch.dryrun.shard_moves_as_alltoall`): an all-to-all
+# whose result is this rank's local output, the padded buffer DTensor hands it
+_DTENSOR = {"shard_dim_alltoall": "all-to-all"}
 _KINDS = {"_c10d_functional": _FUNCTIONAL, "_c10d_functional_autograd": _FUNCTIONAL,
-          "c10d": _C10D}
+          "c10d": _C10D, "_dtensor": _DTENSOR}
 # what these namespaces dispatch that moves no data of a step's own, or whose
 # data another op counts
 _NOT_COUNTED = {"wait_tensor", "_wrap_tensor_autograd", "check_for_nan", "barrier",
@@ -215,9 +226,14 @@ def _hlo_shape(t: torch.Tensor) -> str:
 
 
 def _collective_kind(func) -> str | None:
-    """The collective kind of a dispatched op (`None` for any other op): one of
-    `COLLECTIVE_KINDS`, "collective-broadcast", or, for a collective of these
-    namespaces that has no kind here, its own name, so that none goes unseen."""
+    """The collective kind of a dispatched op (`None` for any other op). Read are the
+    four namespaces of the collectives torch dispatches (`_c10d_functional`, its
+    autograd twin, `c10d` and DTensor's `_dtensor`: every op that
+    `torch.distributed._tools.fake_collectives` lists has a kind in `_KINDS` or
+    stands in `_NOT_COUNTED`, `tests/test_torch_alltoall.py` checks it). The kind
+    is one of `COLLECTIVE_KINDS`, "collective-broadcast", c10d's "reduce",
+    "gather" or "scatter", or, for an op of these namespaces that has no entry
+    here (a newer torch's), `namespace.name`, so that it is recorded, not lost."""
     ns = getattr(func, "namespace", None)
     if ns not in _KINDS:
         return None
@@ -225,6 +241,11 @@ def _collective_kind(func) -> str | None:
     if name in _NOT_COUNTED:
         return None
     return _KINDS[ns].get(name, f"{ns}.{name}")
+
+
+def is_collective(func) -> bool:
+    """Whether a dispatched op is a collective that `CollectiveInventory` records."""
+    return _collective_kind(func) is not None
 
 
 class CollectiveInventory(TorchDispatchMode):
@@ -235,7 +256,13 @@ class CollectiveInventory(TorchDispatchMode):
 
     Ops on DTensors are handed back (`NotImplemented`) so that DTensor turns
     them into the collectives and local ops it runs, which come through here.
-    Open it inside a `FakeTensorMode`, so that it sees each op first."""
+    Open it inside a `FakeTensorMode`, so that it sees each op first.
+
+    Each collective is recorded once, as the op this rank dispatches: what its
+    implementation runs below it (the process group's own all-to-all inside
+    `_dtensor.shard_dim_alltoall`, a fake implementation's local ops) runs while
+    this mode's handler runs, with the mode off the stack, so it is not seen a
+    second time."""
 
     def __init__(self):
         super().__init__()

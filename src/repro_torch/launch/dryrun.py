@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -61,7 +62,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS, SHAPES, applicable, get_config, input_specs
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeSpec, TrainConfig
-from repro_torch.core.hlo import CollectiveInventory
+from repro_torch.core.hlo import CollectiveInventory, is_collective
 from repro_torch.launch.mesh import make_production_mesh, rules_for
 from repro_torch.models.params import param_defs, param_shapes
 from repro_torch.models.transformer import Model
@@ -95,6 +96,46 @@ def init_fake_world(size: int) -> None:
                                "process group is open")
         return
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+
+
+def _alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """`_collective_utils.shard_dim_alltoall` as it runs on a CUDA mesh, on any mesh:
+    the all-to-all of local buffers over `mesh_dim`."""
+    group = mesh.get_group(mesh_dim).group_name
+    return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim, group)
+
+
+@contextlib.contextmanager
+def shard_moves_as_alltoall():
+    """While open, a Shard -> Shard redistribution on a CPU mesh runs as it does on a
+    CUDA mesh: `torch.ops._dtensor.shard_dim_alltoall`, an all-to-all of the padded
+    local buffers, where DTensor's `_collective_utils.shard_dim_alltoall` takes on a
+    CPU mesh an all-gather over the mesh dim and keeps one chunk (mesh-dim size times
+    the local tensor for a moment, recorded as an all-gather). On a CUDA mesh nothing
+    changes. It replaces the name `shard_dim_alltoall` in `torch.distributed.tensor.
+    placement_types`, which `Shard._to_new_shard_dim` calls between its padding of
+    the local tensor and its unpadding, and puts the original back on exit. It
+    refuses to open, naming torch's version, where that name or that call is not
+    what it expects. On a gloo group without an all-to-all for a dtype the op
+    raises: there is no return to the all-gather. Re-entrant."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    orig = getattr(placement_types, "shard_dim_alltoall", None)
+    if orig is _alltoall:
+        yield
+        return
+    caller = inspect.getsource(placement_types.Shard._to_new_shard_dim)
+    if (orig is not _collective_utils.shard_dim_alltoall or "shard_dim_alltoall(" not in caller
+            or not hasattr(torch.ops._dtensor, "shard_dim_alltoall")):
+        raise RuntimeError(f"torch {torch.__version__}: `placement_types.shard_dim_alltoall` is "
+                           "not `_collective_utils.shard_dim_alltoall` called by "
+                           "`Shard._to_new_shard_dim`, or `torch.ops._dtensor.shard_dim_alltoall` "
+                           "is missing: a Shard -> Shard move cannot be made an all-to-all here")
+    placement_types.shard_dim_alltoall = _alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
 
 
 class StepTracer(FakeTensorMode):
@@ -162,7 +203,14 @@ class StepTracer(FakeTensorMode):
     def dispatch(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         tensors = [a for a in tree_leaves((args, kwargs)) if isinstance(a, torch.Tensor)]
-        out = super().dispatch(func, types, args, kwargs)
+        # a collective holds its result: what its fake implementation makes on the
+        # way (the mesh-dim copies of `_dtensor.shard_dim_alltoall`'s) is no rank's
+        inner = is_collective(func)
+        self._quiet += inner
+        try:
+            out = super().dispatch(func, types, args, kwargs)
+        finally:
+            self._quiet -= inner
         if self._quiet or any(isinstance(t, DTensor) for t in tensors):
             return out  # the DTensor level: its local ops come through here too
         packet = func.overloadpacket
@@ -348,7 +396,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules, *, policy=None,
     inventory = CollectiveInventory()
     t0 = time.perf_counter()
     out: dict = {}
-    with use_mesh(mesh, rules), tracer, tracer.quiet_dtensor_meta():
+    with use_mesh(mesh, rules), tracer, tracer.quiet_dtensor_meta(), shard_moves_as_alltoall():
         cp = bool(rules.cp)
         tcfg, policy = _cell_policy(cfg, shape, over, policy, log)
         if policy is not None:
@@ -399,7 +447,7 @@ def execute_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules, *, device, pol
     model = Model(cfg, kernels=kernels)
     inventory = CollectiveInventory()
     out: dict = {}
-    with use_mesh(mesh, rules):
+    with use_mesh(mesh, rules), shard_moves_as_alltoall():
         cp = bool(rules.cp)
         tcfg, policy = _cell_policy(cfg, shape, {}, policy, lambda *_: None)
         with torch.device(device):

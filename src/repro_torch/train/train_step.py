@@ -29,13 +29,14 @@ from repro_torch.train.tree import leaves, tree_map
 
 
 def _unflatten(tree: dict, flat: list):
-    """`flat` (in `leaves` order) in the structure of `tree`."""
-    it = iter(flat)
+    """`flat` (in `leaves` order) in the structure of `tree`. No closure: a nested
+    function that calls itself is a reference cycle, which would keep `flat`, and
+    so a microbatch's whole gradient, alive until the cyclic collector runs."""
+    return _build(tree, iter(flat))
 
-    def build(t):
-        return {k: build(t[k]) for k in sorted(t)} if isinstance(t, dict) else next(it)
 
-    return build(tree)
+def _build(t, it):
+    return {k: _build(t[k], it) for k in sorted(t)} if isinstance(t, dict) else next(it)
 
 
 def _rows(v: torch.Tensor, start: int, stop: int) -> torch.Tensor:
@@ -48,6 +49,32 @@ def _rows(v: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     names = ("dp",) + (None,) * (v.dim() - 1)
     spec = activation_pspec(names, (stop - start, *v.shape[1:]), v.device_mesh)
     return take_rows(v, start, stop, placements(spec, v.device_mesh))
+
+
+def _pop_scaled(flat: list, j: int, n: int) -> torch.Tensor:
+    """flat[j] / n in float32, a new tensor rounded as `flat[j].float() / n` is (an
+    exact copy, then one division), with flat[j] taken out of the list so that the
+    gradient leaf is freed as soon as it is read. Always a copy: autograd may hand
+    two leaves the same gradient tensor, so none is divided in place."""
+    g, flat[j] = flat[j], None
+    return g.to(torch.float32, copy=True).div_(n)
+
+
+def _add_scaled(acc: torch.Tensor, flat: list, j: int, n: int) -> None:
+    """acc += flat[j] / n in place, as `acc + flat[j].float() / n` rounds it (never
+    `add_(g, alpha=1 / n)`, which rounds otherwise), flat[j] freed as it is read. A
+    DTensor gradient must lie as its accumulator does, on the same mesh with the same
+    placements: then the add is each rank's own, on its local shards."""
+    if is_dtensor(acc) or is_dtensor(flat[j]):
+        g = flat[j]
+        if not (is_dtensor(acc) and is_dtensor(g)) or (g.device_mesh, g.placements) != (
+                acc.device_mesh, acc.placements):
+            raise ValueError(f"a microbatch's gradient {getattr(g, 'placements', 'off the mesh')} "
+                             f"is placed otherwise than its accumulator "
+                             f"{getattr(acc, 'placements', 'off the mesh')}")
+        acc, flat[j] = acc._local_tensor, g._local_tensor
+        del g
+    acc.add_(_pop_scaled(flat, j, n))
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict, remat: str | None = None):
@@ -97,16 +124,22 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
         def micro(i):  # made when it is used, so one microbatch is alive at a time
             return {k: _rows(v, i * mb, (i + 1) * mb) for k, v in batch.items()}
 
-        # the first microbatch seeds the accumulators, as JAX's scan does
-        g0, m0 = grads_of(params, micro(0))
-        g_acc = tree_map(lambda a: a.float() / n, g0)
+        # the first microbatch seeds the accumulators, as JAX's scan does; each later
+        # one is added into them in place, a leaf at a time (JAX's scan carry is one
+        # buffer), so one float32 tree is alive, and beside it one leaf's temporary
+        g, m0 = grads_of(params, micro(0))
+        flat = leaves(g)
+        del g
+        acc = [_pop_scaled(flat, j, n) for j in range(len(flat))]
         m_acc = {k: v / n for k, v in m0.items()}
-        del g0
         for i in range(1, n):
             g, m = grads_of(params, micro(i))
-            g_acc = tree_map(lambda a, b: a + b.float() / n, g_acc, g)
+            flat = leaves(g)
+            del g
+            for j, a in enumerate(acc):
+                _add_scaled(a, flat, j, n)
             m_acc = {k: m_acc[k] + m[k] / n for k in m_acc}
-        return g_acc, m_acc
+        return _unflatten(params, acc), m_acc
 
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
