@@ -136,7 +136,9 @@ Phases, each of which fails the run with a non-zero exit:
                (d) `torch.ops._dtensor.shard_dim_alltoall` (DTensor's Shard ->
                Shard move) of a bf16 tensor on that group: one all-to-all of
                its result's bytes in the inventory, the output the input; the
-               dry-run's all-to-all helper opens on this torch and closes.
+               dry-run's all-to-all helper opens on this torch and closes; and
+               `axes.gather_on_leading`'s gather of a dim other than the first
+               on the group's one-rank mesh: one all-gather, the output the input.
  15. vocab   - the vocab-parallel CE a tp mesh runs (VOCAB_NOTE): minitron-8b's
                head at full width on one chunk, its logits cut into 16 vocab
                blocks on a leading dim, each through the mesh path's local
@@ -151,9 +153,13 @@ Phases, each of which fails the run with a non-zero exit:
                zamba2-1.2b Mamba2 layer run as tp 16's sixteen four-head shards,
                each on its own columns, put back together against the
                whole-column layer (output, SSD and conv state, every gradient);
-               each with one part's peak memory beside the whole's; (c) the
-               microbatch rows, which one rank cannot show; (d) the library
-               times of the decode kernel's LSE rows.
+               each with one part's peak memory beside the whole's; (c) one
+               rwkv6-7b layer's token shift, ddlerp and channel mix run as 16
+               sequence blocks, each with its left neighbour's last row, against
+               the whole sequence (outputs and every gradient), one block's
+               peak memory beside the whole's; (d) the library times of the
+               decode kernel's LSE rows; (e) the microbatch rows, which one
+               rank cannot show.
 Then a table of the serve numbers, one JSON line of the kernels (the four
 TPU kernels' ports and the two backward kernels) and, last, the JSON result
 line. Needs one card; imports nothing of JAX.
@@ -200,7 +206,7 @@ from repro_torch.launch.train import run as train_run  # noqa: E402
 from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.models.params import _walk, distribute, layer_params, param_defs  # noqa: E402
 from repro_torch.parallel.axes import (lse_combine, make_rules, placements,  # noqa: E402
-                                       sanitize_pspec, use_mesh)
+                                       sanitize_pspec, shift_rows, use_mesh)
 from repro_torch.models.layers import (VocabParallelCE, VocabParallelEmbedding,  # noqa: E402
                                        chunk_ce, lm_logits)
 from repro_torch.models.transformer import (AUX_KEYS, Model, _apply_mamba_layer,  # noqa: E402
@@ -3015,7 +3021,12 @@ def phase_cluster(dev, smi: str, *, seed=0) -> dict:
 # recorded as nothing), and the output equal to the input (one rank: the gather
 # and the shard leave it whole); `launch.dryrun.shard_moves_as_alltoall`, which
 # makes such a move on a CPU mesh this op (C17), opens on this torch (it finds
-# the call it replaces) and puts DTensor's function back on exit.
+# the call it replaces) and puts DTensor's function back on exit. On the same
+# group's one-rank CUDA mesh, the tensor placed Shard(1) is gathered to Replicate
+# by `parallel.axes.gather_on_leading` (C21 (b): the dim moved to the front, one
+# `all_gather_into_tensor` into a buffer whose leading dim is the gathered one, the
+# result a view): exactly one all-gather of the result's bytes, the output equal
+# to the input.
 LINT_GATE = ["-m", "repro_torch.lint"]
 LINT_RULES = 11
 COST_CELL = dict(layers=2, batch=2, seq=6144, remat="selective")
@@ -3157,16 +3168,33 @@ def phase_alltoall(dev, smi: str, *, shape=ALLTOALL_SHAPE, backend="nccl", init_
     from repro_torch.core.hlo import CollectiveInventory
     from repro_torch.launch.dryrun import shard_moves_as_alltoall
 
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel.axes import gather_on_leading
+
     x = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev, torch.bfloat16)
-    inventory = CollectiveInventory()
+    inventory, gathered = CollectiveInventory(), CollectiveInventory()
     _one_rank_group(backend, init_method)
     try:
         with inventory:
             out = torch.ops._dtensor.shard_dim_alltoall(x, 0, 1, dist.group.WORLD.group_name)
+        xd = DTensor.from_local(x, init_device_mesh(dev.type, (1,)), [Shard(1)], run_check=False)
+        with gathered:
+            whole = gather_on_leading(xd, (0,))
+        whole = whole.to_local()
         if dev.type == "cuda":
             sync()
     finally:
         dist.destroy_process_group()
+    got = [(o.kind, o.bytes) for o in gathered.ops]
+    want_gather = [("all-gather", x.numel() * x.element_size())]
+    gather_same = torch.equal(whole, x)
+    log(f"[cost] (d) axes.gather_on_leading of that tensor placed Shard(1) on the group's one-rank "
+        f"mesh: {got} (want {want_gather}); output equal to the input: {gather_same} ({smi})")
+    if got != want_gather or not gather_same:
+        raise AssertionError(f"cost (d): the gather recorded {got}, not {want_gather}, or its "
+                             f"output differs from the input ({gather_same})")
     recorded = [(o.kind, o.bytes, o.shape) for o in inventory.ops]
     want = [("all-to-all", out.numel() * out.element_size())]
     same = out.shape == x.shape and torch.equal(out, x)
@@ -3182,7 +3210,7 @@ def phase_alltoall(dev, smi: str, *, shape=ALLTOALL_SHAPE, backend="nccl", init_
     if not (same and opened and closed):
         raise AssertionError(f"cost (d): output equal {same}, helper opened {opened}, "
                              f"closed {closed}")
-    return {"recorded": recorded, "equal": same}
+    return {"recorded": recorded, "equal": same, "gathered": got}
 
 
 def train_config(arch: str):
@@ -3336,14 +3364,29 @@ def phase_vocab_split(dev, smi: str, *, d=4096, vocab=256000, batch=2, chunk=204
 # the whole in float32): cuBLAS may pick another GEMM for 644 columns than for
 # 8512. Each part's `max_memory_allocated` of a forward and backward (one block;
 # one shard, its own sum of squares standing for the whole's) is printed beside
-# the whole's. (c) The microbatch split moves rows between dp ranks, and one rank
-# is dp 1: the CPU gloo tests carry it (`tests/test_torch_mesh_rows.py`). (d) The
-# decode kernel's LSE rows (phase 10) get their library time: SDPA's flash
+# the whole's. (c) RWKV6's token-wise parts on a rank's sequence block (ROADMAP
+# C20): one rwkv6-7b layer at full width (seeded bf16 weights; x (1, 4096, 4096)),
+# its token shift, the ddlerp's five mixes and the channel mix run as 16 sequence
+# blocks of 256 (sequence parallelism over tp 16), each block's shift built from
+# its own rows and its left neighbour's last row (zeros for the first), as
+# `axes.shift_rows` builds it, and through the same local functions the mesh path
+# runs on a block (`rwkv6._ddlerp`, `rwkv6._channel_mix`, the weights whole). Held
+# to the whole sequence (`axes.shift_rows` off a mesh, then the same functions)
+# leaf by leaf: the six outputs and the gradients of x and of every weight at a
+# seeded upstream gradient, each bit for bit where it is, else within twice its
+# bf16 floor (as (b)): a block's GEMMs have 256 rows, not 4096, and a weight's
+# gradient is the sum of 16 blocks' parts (summed in float32). One block's
+# `max_memory_allocated` of a forward and backward (block 1, with its halo row) is
+# printed beside the whole's.
+# (d) The decode kernel's LSE rows (phase 10) get their library time: SDPA's flash
 # attention with its log-sum-exp (`aten._scaled_dot_product_flash_attention`), a
 # kv head's G query heads as G query rows over the first n_valid slots, no mask,
 # timed as `_decode_timing` times SDPA (graph-captured, over ROTATION cache pairs).
+# (e) The microbatch split moves rows between dp ranks, and one rank is dp 1: the
+# CPU gloo tests carry it (`tests/test_torch_mesh_rows.py`).
 LAYOUT_TABLE = dict(vocab=151936, d=5120, batch=2, seq=4096, blocks=16)
 LAYOUT_MAMBA2 = dict(batch=2, seq=4096, tp=16)
+LAYOUT_RWKV6 = dict(batch=1, seq=4096, blocks=16)
 LAYOUT_TOL = 1e-6
 
 
@@ -3502,6 +3545,112 @@ def phase_layout_mamba2(dev, smi: str, cfg, *, batch=2, seq=4096, tp=16, seed=0,
     return out
 
 
+RWKV6_MIX = ("maa_x", "maa", "mix_w1", "mix_w2")
+RWKV6_CM = ("mu_k", "mu_r", "wk", "wv", "wr")
+
+
+def rwkv6_mix_params(cfg, dev, dtype, seed=0) -> dict:
+    """The weights of one RWKV6 layer's ddlerp and channel mix at the config's width,
+    seeded (the channel mix's `wk` and `wr` as "cm wk", "cm wr")."""
+    s, D, F_ = cfg.ssm, cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, scale):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    return {"maa_x": draw((D,), 0.5), "maa": draw((5, D), 0.5),
+            "mix_w1": draw((D, 5 * s.mix_dim), D ** -0.5),
+            "mix_w2": draw((5, s.mix_dim, D), s.mix_dim ** -0.5),
+            "mu_k": draw((D,), 0.5), "mu_r": draw((D,), 0.5), "cm wk": draw((D, F_), D ** -0.5),
+            "cm wv": draw((F_, D), F_ ** -0.5), "cm wr": draw((D, D), D ** -0.5)}
+
+
+def _rwkv6_mixes(p, x, xprev):
+    """The token shift's users on (x, xprev): the ddlerp's five mixes, the channel mix."""
+    cm = {k: p[k] if k.startswith("mu") else p[f"cm {k}"] for k in RWKV6_CM}
+    return (*rwkv6._ddlerp({k: p[k] for k in RWKV6_MIX}, x, xprev),
+            rwkv6._channel_mix(cm, x, xprev))
+
+
+def rwkv6_block(b: int, s: int):
+    """`_rwkv6_mixes` of block b (rows [b s, (b + 1) s)) of the sequence, shifted with
+    its left neighbour's last row (zeros for the first), as a function of the whole
+    x (LAYOUT_NOTE (c))."""
+    def run(p, x):
+        xb = x[:, b * s:(b + 1) * s]
+        halo = x[:, b * s - 1:b * s] if b else torch.zeros_like(xb[:, :1])
+        return _rwkv6_mixes(p, xb, torch.cat([halo, xb[:, :-1]], 1))
+    return run
+
+
+def _rwkv6_blocks_grads(p, x, gys, blocks: int) -> dict:
+    """`_rwkv6_grads` of the sequence as `blocks` blocks: the outputs put together and
+    the gradients of x and the weights, each block's parts summed in float32 (as
+    the ranks' partial gradients are summed)."""
+    s = x.shape[1] // blocks
+    parts = [_rwkv6_grads(rwkv6_block(b, s), p, x, [g[:, b * s:(b + 1) * s] for g in gys])
+             for b in range(blocks)]
+    return {k: (torch.stack([q[k].float() for q in parts]).sum(0).to(v.dtype) if k.startswith("d ")
+                else torch.cat([q[k] for q in parts], 1)) for k, v in parts[0].items()}
+
+
+def _rwkv6_whole(p, x):
+    return _rwkv6_mixes(p, x, shift_rows(x))
+
+
+def _rwkv6_grads(run, p, x, gys) -> dict:
+    """The outputs of `run(p, x)` and the gradients of x and every weight at `gys`."""
+    leaves = {k: v.detach().requires_grad_() for k, v in {"x": x, **p}.items()}
+    outs = run({k: v for k, v in leaves.items() if k != "x"}, leaves["x"])
+    grads = torch.autograd.grad(outs, list(leaves.values()), gys)
+    names = ("xw", "xk", "xv", "xr", "xg", "channel mix")
+    return {**{k: o.detach() for k, o in zip(names, outs)},
+            **{f"d {k}": v for k, v in zip(leaves, grads)}}
+
+
+def phase_layout_rwkv6(dev, smi: str, cfg, *, batch=1, seq=4096, blocks=16, seed=0,
+                       memory=True) -> dict:
+    """LAYOUT_NOTE (c): RWKV6's shift, ddlerp and channel mix on sequence blocks."""
+    bf = torch.bfloat16
+    p = rwkv6_mix_params(cfg, dev, bf, seed)
+    rng = np.random.default_rng(seed + 3)
+    x = _randn(rng, (batch, seq, cfg.d_model), bf, dev)
+    gys = [_randn(rng, (batch, seq, cfg.d_model), bf, dev) for _ in range(6)]
+    whole = _rwkv6_grads(_rwkv6_whole, p, x, gys)
+    whole32 = _rwkv6_grads(_rwkv6_whole, {k: v.float() for k, v in p.items()}, x.float(),
+                           [g.float() for g in gys])
+    split = _rwkv6_blocks_grads(p, x, gys, blocks)
+    exact, worst, rows = [], 0.0, []
+    for k, ref in whole.items():
+        if torch.equal(split[k], ref):
+            exact.append(k)
+            continue
+        ref32 = whole32[k].float()
+        norm = ref32.norm().item()
+        err = (split[k].float() - ref.float()).norm().item() / norm
+        floor = (ref.float() - ref32).norm().item() / norm
+        worst = max(worst, err / max(floor, 1e-30))
+        rows.append(f"{k} {err:.3e} (floor {floor:.3e})")
+        if not err <= 2 * floor:
+            raise AssertionError(f"layout (c): {k}: {err} > 2 x the bf16 floor {floor}")
+    log(f"[layout] (c) {cfg.name} token shift, ddlerp and channel mix, x ({batch}, {seq}, "
+        f"{cfg.d_model}) bf16, as {blocks} sequence blocks each with its left neighbour's last "
+        f"row, against the whole sequence: bit for bit {len(exact)} of {len(whole)} "
+        f"({', '.join(exact) or 'none'}); the others' relative error (bar 2 x the bf16 floor): "
+        f"{'; '.join(rows) or 'none'}; worst {worst:.3f} floors")
+    out = {"exact": exact, "worst_floors": worst}
+    del whole, whole32, split
+    if memory:
+        s = seq // blocks
+        out["block_gib"] = _peak_gib(lambda: _rwkv6_grads(rwkv6_block(1, s), p, x,
+                                                          [g[:, s:2 * s] for g in gys]))
+        out["whole_gib"] = _peak_gib(lambda: _rwkv6_grads(_rwkv6_whole, p, x, gys))
+        log(f"[layout] (c) max_memory_allocated of the forward and backward: one block of "
+            f"{seq // blocks} tokens {out['block_gib']:.3f} GiB, the whole sequence "
+            f"{out['whole_gib']:.3f} GiB; {smi}")
+    return out
+
+
 def _lse_library_ms(rng, dev, B, Hkv, G, T, dh, nv) -> float:
     """LAYOUT_NOTE (d): SDPA's flash attention with its LSE at a decode LSE row's shape."""
     bf = torch.bfloat16
@@ -3523,21 +3672,23 @@ def _lse_library_ms(rng, dev, B, Hkv, G, T, dh, nv) -> float:
 
 
 def phase_layout(dev, smi: str, lse_rows: list, *, seed=0) -> dict:
-    """LAYOUT_NOTE: phase 16's four parts."""
+    """LAYOUT_NOTE: phase 16's five parts."""
     table = phase_layout_table(dev, smi, seed=seed, **LAYOUT_TABLE)
     torch.cuda.empty_cache()
     layer = phase_layout_mamba2(dev, smi, get_config("zamba2_1p2b"), seed=seed, **LAYOUT_MAMBA2)
     torch.cuda.empty_cache()
-    log("[layout] (c) the microbatch split: one card is dp 1, where a microbatch's rows are this "
-        "rank's own; the point-to-point moves between dp ranks are held to one device on gloo "
-        "processes by tests/test_torch_mesh_rows.py")
+    rwkv = phase_layout_rwkv6(dev, smi, get_config("rwkv6_7b"), seed=seed, **LAYOUT_RWKV6)
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(seed + 2)
     for row, (B, Hkv, G, T, dh, nvs) in zip(lse_rows, SPLIT_CASES):
         row["library_ms"] = _lse_library_ms(rng, dev, B, Hkv, G, T, dh, nvs[0])
         log(f"[layout] (d) decode_attention with LSE at {row['shape']}: kernel {row['ms']:.4f} ms, "
             f"SDPA's flash attention with its LSE {row['library_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms; {smi}")
-    return {"table": table, "mamba2": layer}
+    log("[layout] (e) the microbatch split: one card is dp 1, where a microbatch's rows are this "
+        "rank's own; the point-to-point moves between dp ranks are held to one device on gloo "
+        "processes by tests/test_torch_mesh_rows.py")
+    return {"table": table, "mamba2": layer, "rwkv6": rwkv}
 
 
 def main() -> None:

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Trace dry-run cells and count the Shard -> Shard moves each one makes.
+"""Trace dry-run cells and count the Shard -> Shard moves and the Shard(d > 0) ->
+Replicate gathers each one makes.
 
   PYTHONPATH=src python scripts/dryrun_shard_moves.py --out DIR [--arch A ...]
       [--shape S ...] [--mesh single|multi|both]
@@ -12,10 +13,15 @@ reads them) with a counter around every Shard -> Shard redistribution: DTensor's
 `shard_dim_alltoall` that `torch.distributed.tensor.placement_types` calls. Each
 move is recorded with the padded local tensor that function is given (shape,
 dtype, bytes) and the size of the mesh dim it moves over, one file a cell under
-DIR/moves/. `--report` prints one markdown row a cell: its moves, the largest
-moved local tensor, and the bound on what the move can change in the cell's
-peak, (mesh-dim size - 1) x that tensor. A CPU trace of fake tensors: no device
-number. Imports nothing of JAX.
+DIR/moves/. Each gather that DTensor makes of a dim other than the first
+(`Shard._to_replicate_tensor` with `dim > 0`, which gathers into dim 0 and then
+concatenates the chunks along the dim: two result-sized buffers) is recorded
+beside them with its local tensor, the mesh dim's size and the innermost frame
+of `repro_torch` that asked for it. `--report` prints one markdown row a cell:
+its moves, the largest moved local tensor, the bound on what the move can
+change in the cell's peak, (mesh-dim size - 1) x that tensor, and its gathers
+on a dim > 0 with their largest result and their sites. A CPU trace of fake
+tensors: no device number. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import argparse
 import functools
 import json
 import sys
+import traceback
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
@@ -73,6 +80,51 @@ class MoveCounter:
         placement_types.Shard._to_new_shard_dim = self._orig
 
 
+def _site() -> str:
+    """The innermost frames of `repro_torch` on the stack: the first outside
+    `parallel/axes.py` and, where one lies between, the helper of `axes.py` it
+    called, as "file.py:line function > axes.py:line function"."""
+    frames = [fr for fr in traceback.extract_stack() if "repro_torch" in fr.filename]
+    helper = ""
+    for fr in reversed(frames):
+        name = f"{Path(fr.filename).name}:{fr.lineno} {fr.name}"
+        if not fr.filename.endswith("axes.py"):
+            return name + helper
+        helper = helper or f" > {name}"
+    return helper.removeprefix(" > ") or "?"
+
+
+class GatherCounter:
+    """While open, records each gather DTensor makes of a dim other than the first:
+    `Shard._to_replicate_tensor` of a `Shard(d)`, d > 0, with the local tensor it is
+    given, the mesh dim's size, the result's bytes and the site that asked."""
+
+    def __init__(self):
+        self.gathers: list[dict] = []
+
+    def __enter__(self):
+        shard = placement_types.Shard
+        self._orig = orig = shard._to_replicate_tensor
+        gathers = self.gathers
+
+        @functools.wraps(orig)
+        def counted(placement, local_tensor, mesh, mesh_dim, logical_shape):
+            if type(placement) is shard and placement.dim > 0:
+                n = mesh.size(mesh_dim)
+                nbytes = local_tensor.numel() * local_tensor.element_size()
+                gathers.append({"shape": list(local_tensor.shape), "dim": placement.dim,
+                                "dtype": str(local_tensor.dtype).removeprefix("torch."),
+                                "bytes": nbytes, "result_bytes": n * nbytes,
+                                "mesh_dim_size": n, "site": _site()})
+            return orig(placement, local_tensor, mesh, mesh_dim, logical_shape)
+
+        shard._to_replicate_tensor = counted
+        return self
+
+    def __exit__(self, *exc):
+        placement_types.Shard._to_replicate_tensor = self._orig
+
+
 def sweep(args) -> None:
     out = Path(args.out)
     (out / "moves").mkdir(parents=True, exist_ok=True)
@@ -82,22 +134,25 @@ def sweep(args) -> None:
         for arch in args.arch:
             for shape in args.shape:
                 for mp in meshes:
-                    with MoveCounter() as counter:
+                    with MoveCounter() as counter, GatherCounter() as gathers:
                         rec = dryrun.run_cell(arch, shape, mp, str(out), force=True)
                     if rec["status"] == "skipped":
                         continue
                     name = f"{arch}__{shape}__{rec['mesh']}.json"
                     (out / "moves" / name).write_text(json.dumps(
-                        {"status": rec["status"], "moves": counter.moves}, indent=1))
-                    print(f"  {len(counter.moves)} Shard -> Shard moves")
+                        {"status": rec["status"], "moves": counter.moves,
+                         "gathers": gathers.gathers}, indent=1))
+                    print(f"  {len(counter.moves)} Shard -> Shard moves, "
+                          f"{len(gathers.gathers)} Shard(d > 0) -> Replicate gathers")
     finally:
         dist.destroy_process_group()
 
 
 def report(root: Path) -> None:
     print("| cell | mesh | status | Shard -> Shard moves | largest moved local tensor "
-          "| bound on the peak's change GiB |")
-    print("| --- | --- | --- | --- | --- | --- |")
+          "| bound on the peak's change GiB | Shard(d > 0) -> Replicate gathers "
+          "| largest result GiB | sites |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- |")
     for path in sorted((root / "moves").glob("*.json")):
         arch, shape, mesh = path.stem.split("__")
         rec = json.loads(path.read_text())
@@ -106,8 +161,11 @@ def report(root: Path) -> None:
         largest = (f"{tuple(big['shape'])} {big['dtype']} over {big['mesh_dim_size']}"
                    if big else "—")
         bound = ((big["mesh_dim_size"] - 1) * big["bytes"] / GIB) if big else 0.0
+        gathers = rec.get("gathers", [])
+        top = max((g["result_bytes"] for g in gathers), default=0) / GIB
+        sites = ", ".join(sorted({g["site"] for g in gathers})) or "—"
         print(f"| {arch} {shape} | {mesh} | {rec['status']} | {len(moves)} | {largest} "
-              f"| {bound:.3f} |")
+              f"| {bound:.3f} | {len(gathers)} | {top:.3f} | {sites} |")
 
 
 def main(argv=None) -> None:

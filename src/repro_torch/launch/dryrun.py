@@ -23,7 +23,8 @@ instead, with real Python and no data:
     it sums their flops (`torch.utils.flop_counter`'s formulas; JAX's
     `cost_analysis()`) and tracks the bytes of live storages, whose peak
     stands for JAX's `memory_analysis()`; what DTensor runs on global-shape
-    stand-ins to propagate an op's sharding is left out;
+    stand-ins to propagate an op's sharding is left out, and a functional
+    collective's `wait_tensor` hands back its input, as on a process group;
   * `CollectiveInventory` (`core/hlo.py`) records each collective this rank
     dispatches, with the bytes of its result, in the shape of JAX's HLO
     `collective_summary`. `execute_cell` runs the same step for real on a
@@ -143,7 +144,10 @@ class StepTracer(FakeTensorMode):
     fake tensors (an op on DTensors is counted where DTensor runs it, on the local
     shards), and the bytes of the storages alive, with their peak. `track` adds
     tensors made before (the state); a storage counts once, however many views
-    it has, until it is freed."""
+    it has, until it is freed. A functional collective's result is one storage:
+    `_c10d_functional.wait_tensor` gives back its input, as a process group's
+    does, where FakeTensorMode would give a new tensor of its own (two storages
+    for one result, the first held by DTensor's async wrapper)."""
 
     def __init__(self):
         super().__init__(allow_non_fake_inputs=True)
@@ -202,6 +206,10 @@ class StepTracer(FakeTensorMode):
 
     def dispatch(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.overloadpacket is torch.ops._c10d_functional.wait_tensor:
+            # on a process group the wait hands back its input, the collective's result
+            # (one storage); FakeTensorMode's would make a second tensor beside it
+            return args[0]
         tensors = [a for a in tree_leaves((args, kwargs)) if isinstance(a, torch.Tensor)]
         # a collective holds its result: what its fake implementation makes on the
         # way (the mesh-dim copies of `_dtensor.shard_dim_alltoall`'s) is no rank's

@@ -37,7 +37,7 @@ from repro_torch.models.flash_vjp import flash_attention_vjp
 from repro_torch.models.layers import apply_rope, rms_head_norm
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.parallel.axes import (axes_size, is_dtensor, logical_spec, lse_combine, on_local,
-                                       on_shards, shard, shard_range, zeros)
+                                       on_shards, shard, shard_param, shard_range, zeros)
 
 NEG_INF = -1e30
 
@@ -70,7 +70,7 @@ def _pad_heads(w: torch.Tensor, H: int, Hp: int, dim: int) -> torch.Tensor:
     if Hp == H:
         return w
     per = w.shape[dim] // H
-    w = shard(w, None, None)
+    w = shard_param(w, None, None)
     pad = [0, 0] * (1 - dim) + [0, (Hp - H) * per]
     w = on_local(lambda t: torch.nn.functional.pad(t, pad), w, out=[w.placements])
     return shard(w, *(("tp", None) if dim == 0 else (None, "tp")))

@@ -32,8 +32,8 @@ from torch.distributed.tensor import Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.axes import (SumOverRanks, activation_pspec, axes_size, block_of,
-                                       is_dtensor, on_local, placements, regrid, shard, shard_range,
-                                       write)
+                                       is_dtensor, on_local, placements, regrid, shard, shard_param,
+                                       shard_range, write)
 
 
 def dims(cfg: ModelConfig):
@@ -279,7 +279,7 @@ def mamba2_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 256):
         state_pl = placements(activation_pspec(("dp", "tp", None), (x.shape[0], conv_dim, W - 1),
                                                mesh), mesh)
         c0, c = block_of(mesh.get_coordinate(), state_pl, mesh, conv_dim, dim=1)
-        whole = (shard(p[k], *(None,) * p[k].dim()) for k in ("w_in", "conv_w", "conv_b"))
+        whole = (shard_param(p[k], *(None,) * p[k].dim()) for k in ("w_in", "conv_w", "conv_b"))
         heads = [Shard(1) if isinstance(pa, Shard) else px  # the SSD state's placements
                  for px, pa in zip(x.placements, a_log.placements)]
         y, state, conv_state = on_local(

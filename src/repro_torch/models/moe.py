@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoECfg
 from repro_torch.models.layers import activation
 from repro_torch.models.mlp import apply_mlp
-from repro_torch.parallel.axes import axes_size, is_dtensor, on_shards, shard
+from repro_torch.parallel.axes import axes_size, is_dtensor, on_shards, shard, shard_param
 
 _RECORD: list | None = None  # the open routing record, if any
 STATS = ("me", "ce", "z", "drop")  # a dispatch group's load-balance statistics
@@ -167,10 +167,11 @@ def _experts(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
             up = act(up)
         return torch.bmm(up, p["wo"].to(dt))
     # under `shard_ff_dp` the ff dim is also on the ZeRO axes: gathered at use (ZeRO-3)
-    wi, wo = (shard(p[k], "ep", None, None).to(dt) for k in ("wi", "wo"))
+    wi, wo = (shard_param(p[k], "ep", None, None).to(dt) for k in ("wi", "wo"))
     up = torch.einsum("gecd,edf->gecf", h, wi)
     if "wg" in p:
-        up = act(torch.einsum("gecd,edf->gecf", h, shard(p["wg"], "ep", None, None).to(dt))) * up
+        wg = shard_param(p["wg"], "ep", None, None).to(dt)
+        up = act(torch.einsum("gecd,edf->gecf", h, wg)) * up
     else:
         up = act(up)
     return torch.einsum("gecf,efd->gecd", up, wo)

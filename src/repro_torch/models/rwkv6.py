@@ -13,21 +13,31 @@ The decode functions update the state dicts they are given IN PLACE, as the
 attention caches are.
 
 On a mesh (JAX's shard sites: r, k and v on ("dp", None, "tp", None), each
-mix's output on ("dp", "sp", None)) each mix gathers its sequence whole at its
-entry, so the token shift reads the previous rank's last row under sequence
-parallelism; the chunk scan, the bonus `u` and the group norm run on each
-rank's heads (`u` and `ln_x` on their own shards), and the output projection's
-partial sums meet in the closing `shard`.
+mix's output on ("dp", "sp", None)) x stays on ("dp", "sp", None). Where
+sequence parallelism splits it, each rank works on its own block of tokens, as
+GSPMD keeps JAX's token-wise pad, ddlerp and channel mix: the token shift takes
+the one row the block lacks from the previous block's rank (`axes.shift_rows`),
+the ddlerp, the products, the decay and the whole channel mix run on the block
+with the weights gathered whole (their gradients reduced back onto their
+shards), and only r, k, v and w move to the heads layout, an all-to-all each,
+for the chunk scan, the bonus `u` and the group norm on each rank's heads (`u`
+and `ln_x` on their own shards); the scan's output moves back to the blocks
+for the gate and the output projection. The state's shift row is the last
+block's, broadcast (`axes.last_row`). Where nothing splits the sequence the
+products run on the whole sequence against the weights' own shards, and the
+output projection's partial sums meet in the closing `shard`.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import group_norm_heads
-from repro_torch.parallel.axes import on_local, on_shards, regrid, shard, write
+from repro_torch.parallel.axes import (is_dtensor, last_row, on_local, on_shards, regrid, shard,
+                                       shard_param, shift_rows, write)
 
 
 def heads(cfg: ModelConfig):
@@ -52,8 +62,22 @@ def _pinned(out: torch.Tensor) -> torch.Tensor:
     mesh the gradient comes back to it in this layout, not in one DTensor picks
     (split over the sequence too, or a partial sum reduced onto the tokens), which
     the product's backward would flatten into a strided shard of the tokens: one
-    DTensor plans by a search over every mesh dim, and cannot always view back."""
+    DTensor plans by a search over every mesh dim, and cannot always view back.
+    Only where nothing splits the sequence: a split one runs on blocks."""
     return shard(out, "dp", None, None)
+
+
+def _split(x: torch.Tensor) -> bool:
+    """Whether mesh dims of more than one rank split x's sequence (dim 1): sequence
+    parallelism in effect."""
+    return is_dtensor(x) and any(isinstance(p, Shard) and p.dim == 1 and x.device_mesh.size(i) > 1
+                                 for i, p in enumerate(x.placements))
+
+
+def _whole(w: torch.Tensor, dt=None) -> torch.Tensor:
+    """A weight cast to dt on its shards, then gathered whole on every rank."""
+    w = w if dt is None else w.to(dt)
+    return shard_param(w, *(None,) * w.dim())
 
 
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
@@ -106,11 +130,14 @@ def _wkv_chunk_scan(r, k, v, w, u, chunk: int, init_state=None):
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
-    """The token shift along a whole sequence (B, S, D): row t - 1 at t, zeros at 0.
-    On a mesh the sequence is gathered first (sequence parallelism splits it
-    between blocks), so row 0 of a rank's block sees the previous rank's last."""
-    x = shard(x, "dp", None, None)
-    return x, on_shards(lambda t: F.pad(t, (0, 0, 1, 0))[:, :t.shape[1]], x)
+    """(x, the token shift of x (B, S, D): row t - 1 at t, zeros at 0). On a mesh x on
+    ("dp", "sp", None), each rank shifting its own block, row 0 of it the
+    previous block's last row (`shift_rows`); on ("dp", None, None) where no
+    more than one rank splits the sequence."""
+    x = shard(x, "dp", "sp", None)
+    if not _split(x):
+        x = shard(x, "dp", None, None)
+    return x, shift_rows(x)
 
 
 def _mixes(p: dict, x: torch.Tensor, xprev: torch.Tensor):
@@ -132,25 +159,48 @@ def _group_norm(p: dict, o: torch.Tensor) -> torch.Tensor:
                      params=(shard(p["ln_x"]["scale"], "tp"), shard(p["ln_x"]["bias"], "tp")))
 
 
+def _block_products(p: dict, xw, xk, xv, xr, xg):
+    """(xr @ wr, xk @ wk, xv @ wv, silu(xg @ wg), the decay) on each rank's block of
+    tokens, from the weights gathered whole."""
+    dt = xr.dtype
+    keys = ("wr", "wk", "wv", "wg", "w_a", "w_b")
+
+    def fn(xw, xk, xv, xr, xg, wr, wk, wv, wg, wa, wb, w0):
+        return (xr @ wr, xk @ wk, xv @ wv, F.silu(xg @ wg),
+                _decay({"w_a": wa, "w_b": wb, "w0": w0}, xw))
+
+    return on_shards(fn, xw, xk, xv, xr, xg,
+                     params=(*(_whole(p[k], dt) for k in keys), _whole(p["w0"])), n_out=5)
+
+
 def time_mix_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, chunk: int = 32):
     """x: (B, S, D) -> (out (B, S, D), {"wkv" (B, H, dh, dh) fp32, "shift" (B, D)}).
-    On a mesh the chunk scan and the group norm run on each rank's heads."""
+    On a mesh the chunk scan and the group norm run on each rank's heads, and
+    where the sequence is split the rest on each rank's block of it."""
     H, dh = heads(cfg)
     B, S, D = x.shape
     dt = x.dtype
     x, xprev = _shift(x)
     xw, xk, xv, xr, xg = _mixes(p, x, xprev)
-    r = _heads(xr @ p["wr"].to(dt), H, dh)
-    k = _heads(xk @ p["wk"].to(dt), H, dh)
-    v = _heads(xv @ p["wv"].to(dt), H, dh)
-    g = F.silu(xg @ p["wg"].to(dt))
-    w = _heads(_decay(p, xw), H, dh)
+    if _split(x):
+        r, k, v, g, w = _block_products(p, xw, xk, xv, xr, xg)
+        r, k, v, w = (_heads(t, H, dh) for t in (r, k, v, w))
+    else:
+        r = _heads(xr @ p["wr"].to(dt), H, dh)
+        k = _heads(xk @ p["wk"].to(dt), H, dh)
+        v = _heads(xv @ p["wv"].to(dt), H, dh)
+        g = F.silu(xg @ p["wg"].to(dt))
+        w = _heads(_decay(p, xw), H, dh)
     pl = getattr(r, "placements", None)  # (B, S, H, K): out alike, the state (B, H, K, V)
     out, state = on_local(lambda *t: _wkv_chunk_scan(*t, chunk), r.float(), k.float(), v.float(),
                           w, shard(p["u"], "tp", None), out=[pl, regrid(pl, {0: 0, 2: 1})])
-    out = _group_norm(p, out.to(dt))
-    out = _pinned((out.reshape(B, S, D) * g) @ p["wo"].to(dt))
-    return shard(out, "dp", "sp", None), {"wkv": state, "shift": x[:, -1]}
+    out = _group_norm(p, out.to(dt)).reshape(B, S, D)
+    if _split(x):  # back to the blocks, an all-to-all, for the gate and the projection
+        out = on_shards(lambda o, g_, wo: (o * g_) @ wo, shard(out, "dp", "sp", None), g,
+                        params=(_whole(p["wo"], dt),))
+    else:
+        out = _pinned((out * g) @ p["wo"].to(dt))
+    return shard(out, "dp", "sp", None), {"wkv": state, "shift": last_row(x)}
 
 
 def _wkv_step(r, k, v, w, S_, u):
@@ -192,9 +242,16 @@ def _channel_mix(p: dict, x: torch.Tensor, xprev: torch.Tensor) -> torch.Tensor:
 
 
 def channel_mix_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, D) -> (out, {"shift" (B, D)})."""
+    """x: (B, S, D) -> (out, {"shift" (B, D)}). Where the sequence is split, all of it
+    on each rank's block, from the weights gathered whole."""
     x, xprev = _shift(x)
-    return shard(_pinned(_channel_mix(p, x, xprev)), "dp", "sp", None), {"shift": x[:, -1]}
+    if _split(x):
+        keys = ("mu_k", "mu_r", "wk", "wv", "wr")
+        out = on_shards(lambda a, b, *w: _channel_mix(dict(zip(keys, w)), a, b), x, xprev,
+                        params=tuple(_whole(p[k], x.dtype) for k in keys))
+    else:
+        out = _pinned(_channel_mix(p, x, xprev))
+    return shard(out, "dp", "sp", None), {"shift": last_row(x)}
 
 
 def channel_mix_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict) -> torch.Tensor:

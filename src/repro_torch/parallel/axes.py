@@ -28,7 +28,12 @@ vocab-split logits over tp (`ce_combine`).
 around them, per-head parameters (Mamba2's and RWKV6's) on their own shards.
 `write` fills a placed cache or state in place, shard by shard; `shard_range`
 and `block_of` give a rank's part of a split dim; `take_rows` moves a block
-of a batch's rows to the ranks that need them, point to point.
+of a batch's rows to the ranks that need them, point to point; `shift_rows`
+shifts a split sequence by one row, each rank receiving the row its block
+lacks from its neighbour, and `last_row` takes a split sequence's last row
+without gathering it. `shard_param` is `shard` for a weight at its use, which
+gathers a dim other than the first into one buffer whose leading dim is the
+gathered one (`gather_dims`).
 `lse_combine` joins the partial outputs of ranks that hold parts of a KV
 cache's length, as flash-decode joins its splits, and `ce_combine` the CE's
 parts of ranks that hold blocks of the vocabulary; both also join parts on a
@@ -48,6 +53,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
@@ -203,6 +209,100 @@ def shard(x, *names):
                           placements(activation_pspec(names, tuple(x.shape), mesh), x.device_mesh))
 
 
+def shard_param(w, *names):
+    """`shard` of a weight at its use, each gather of a dim other than the first made
+    into one buffer (`gather_dims`): the weight's users, matmuls and einsums, read
+    the permuted view as it is. (An activation's would not: a matmul flattens a
+    (B, S, D) view gathered on S into (B S, D) by a copy, so `shard` leaves
+    activations to DTensor's gather.) DTensor redistributes the other mesh dims
+    first, so that the gathers are the last step and each gradient's reduction
+    onto the shards is a reduce-scatter, as DTensor's backward makes it (a
+    redistribution after them would all-reduce it first)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(w):
+        return w
+    dm = w.device_mesh
+    pl = placements(activation_pspec(names, tuple(w.shape), mesh), dm)
+    mid = tuple(q if type(q) is Shard and q.dim > 0 and p.is_replicate() and dm.size(i) > 1 else p
+                for i, (p, q) in enumerate(zip(pl, w.placements)))
+    if mid == pl:  # nothing to gather on a dim > 0: `shard`'s redistribution
+        return w.redistribute(dm, pl)
+    if mid != tuple(w.placements):
+        w = w.redistribute(dm, mid)
+    return gather_dims(w, pl)
+
+
+class _GatherOnLeading(torch.autograd.Function):
+    """A DTensor's Shard(d) -> Replicate moves, d > 0, on the mesh dims of `moves`
+    ((mesh dim, size of d as that mesh dim splits it), innermost first), each
+    gathered into one buffer whose leading dim is the gathered one: the local
+    shard's dim d moved to the front (a copy of the local part, padded as DTensor
+    pads an uneven split), one `all_gather_into_tensor` over the mesh dim, and the
+    result a view of it with the dim moved back (DTensor gathers into dim 0 and
+    then concatenates the chunks along d: two result-sized buffers at once). The
+    values are DTensor's. One autograd node for all the moves: the backward is
+    DTensor's redistribution of the gradient back to the input's placements, in
+    one step, as `redistribute`'s backward is."""
+
+    @staticmethod
+    def forward(ctx, t, moves):
+        mesh, pl = t.device_mesh, list(t.placements)
+        ctx.mesh, ctx.placements = mesh, tuple(pl)
+        out = t.to_local()
+        for mesh_dim, size in moves:
+            d, n = pl[mesh_dim].dim, mesh.size(mesh_dim)
+            local = out.movedim(d, 0)
+            rows = -(-size // n)  # torch.chunk's: every rank's shard padded to it
+            if local.shape[0] < rows:
+                local = torch.cat([local, local.new_zeros(rows - local.shape[0], *local.shape[1:])])
+            buf = torch.ops._c10d_functional.all_gather_into_tensor(
+                local.contiguous(), n, mesh.get_group(mesh_dim).group_name)
+            out = torch.ops._c10d_functional.wait_tensor(buf).movedim(0, d).narrow(d, 0, size)
+            pl[mesh_dim] = Replicate()
+        return DTensor.from_local(out, mesh, pl, run_check=False, shape=t.shape, stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        # as DTensor's backward: a gradient already whole where the input was a
+        # partial sum stays whole
+        pl = tuple(Replicate() if p.is_partial() and not q.is_partial() else p
+                   for p, q in zip(ctx.placements, g.placements))
+        return g.redistribute(ctx.mesh, pl), None
+
+
+def gather_on_leading(t, mesh_dims):
+    """A DTensor `t` placed Shard(d), d > 0, on each of `mesh_dims` (each the innermost
+    mesh dim then left splitting its d, in order) as Replicate there, by
+    `_GatherOnLeading`: one result-sized buffer a move, one autograd node.
+    Refuses a nested split of d that the outer mesh dims do not divide evenly."""
+    pl, moves = list(t.placements), []
+    for i in mesh_dims:
+        d = pl[i].dim
+        outer = math.prod(t.device_mesh.size(j) for j, q in enumerate(pl[:i])
+                          if type(q) is Shard and q.dim == d)
+        if t.shape[d] % outer:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} is split unevenly before mesh dim "
+                             f"{i}: {t.placements}")
+        moves.append((i, t.shape[d] // outer))
+        pl[i] = Replicate()
+    return _GatherOnLeading.apply(t, tuple(moves))
+
+
+def gather_dims(t, pl):
+    """`t` with each of its Shard(d) -> Replicate moves toward placements `pl` made for
+    d > 0 over more than one rank, innermost mesh dim first, by `gather_on_leading`
+    (one result-sized buffer a move). The others are left to `redistribute`: a
+    move of dim 0, and one over a mesh dim of size 1 (no gather: DTensor's no-op)."""
+    cur, dims = list(t.placements), []
+    for i in reversed(range(len(pl))):
+        p = cur[i]
+        if type(p) is Shard and p.dim > 0 and t.device_mesh.size(i) > 1 and pl[i].is_replicate() \
+                and not any(type(q) is Shard and q.dim == p.dim for q in cur[i + 1:]):
+            dims.append(i)
+            cur[i] = Replicate()
+    return gather_on_leading(t, dims) if dims else t
+
+
 def grad_placements(arg_placements, split) -> tuple:
     """The gradient placements of an input placed `arg_placements` to a function
     whose work is split over the mesh dims `split`: as the input where it is
@@ -288,8 +388,8 @@ def shard_range(t, dim: int):
     if not is_dtensor(t):
         return 0, t.shape[dim], ()
     mesh = t.device_mesh
-    dims = tuple(i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim)
-    return (*block_of(mesh.get_coordinate(), t.placements, mesh, t.shape[dim], dim), dims)
+    return (*block_of(mesh.get_coordinate(), t.placements, mesh, t.shape[dim], dim),
+            _split_dims(t, dim))
 
 
 def block_of(coord, pl, mesh, n: int, dim: int = 0) -> tuple[int, int]:
@@ -349,6 +449,100 @@ def take_rows(t, start: int, stop: int, pl):
             work.wait()
     shape = (n, *t.shape[1:])
     return DTensor.from_local(out, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _split_dims(t, dim: int) -> tuple[int, ...]:
+    """The mesh dims that shard dim `dim` of a DTensor `t`, major to minor."""
+    return tuple(i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == dim)
+
+
+def _block_peers(mesh, own: tuple[int, ...]) -> tuple:
+    """(global rank of the previous block, of the next block) of this rank along the
+    mesh dims `own` that split a dim (major to minor), None past either end."""
+    me = list(mesh.get_coordinate())
+    sizes = [mesh.size(i) for i in own]
+    b = 0
+    for i, n in zip(own, sizes):
+        b = b * n + me[i]
+    with _disable_current_modes():  # the rank grid is a real tensor, also under a fake mode
+        ranks = mesh.mesh.tolist()
+
+    def rank_of(block):
+        if not 0 <= block < math.prod(sizes):
+            return None
+        coord = list(me)
+        for i, n in zip(reversed(own), reversed(sizes)):
+            coord[i], block = block % n, block // n
+        return functools.reduce(list.__getitem__, coord, ranks)
+
+    return rank_of(b - 1), rank_of(b + 1)
+
+
+def _swap_rows(send, recv, send_to, recv_from) -> None:
+    """Send `send` to rank `send_to` and receive `recv` from `recv_from`, point to
+    point (either None: no message that way)."""
+    ops = []
+    if recv_from is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, recv_from))
+    if send_to is not None:
+        ops.append(dist.P2POp(dist.isend, send.contiguous(), send_to))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+
+
+class _ShiftRows(torch.autograd.Function):
+    """A rank's block (B, s, ...) of a sequence shifted by one row: the previous
+    block's last row (received from `left`; zeros for the first block), then the
+    block's first s - 1 rows. The block's last row is sent to `right`. The
+    backward moves the received row's gradient back to `left`, point to point."""
+
+    @staticmethod
+    def forward(ctx, t, left, right):
+        ctx.left, ctx.right = left, right
+        halo = t.new_zeros(t.shape[0], 1, *t.shape[2:])
+        _swap_rows(t[:, -1:], halo, right, left)
+        return torch.cat([halo, t[:, :-1]], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tail = g.new_zeros(g.shape[0], 1, *g.shape[2:])
+        _swap_rows(g[:, :1], tail, ctx.left, ctx.right)
+        return torch.cat([g[:, 1:], tail], 1), None, None
+
+
+def shift_rows(t):
+    """The token shift of a sequence t (B, S, ...): row i - 1 at row i, zeros at row 0,
+    `F.pad(t, (.., 1, 0))[:, :S]`. On a DTensor whose sequence (dim 1) mesh dims
+    split, each rank shifts its own block and gets the one row it lacks, the last
+    row of the previous block, from the rank that holds it (a collective-permute
+    of B_local x ... elements; the backward sends that row's gradient back): no
+    rank forms more of the sequence than its block. Differentiable."""
+    own = _split_dims(t, 1) if is_dtensor(t) else ()
+    if not own:
+        return on_shards(lambda a: F.pad(a, (0, 0) * (a.dim() - 2) + (1, 0))[:, :a.shape[1]], t)
+    left, right = _block_peers(t.device_mesh, own)
+    return on_local(lambda a: _ShiftRows.apply(a, left, right), t, out=[t.placements])
+
+
+def last_row(t):
+    """`t[:, -1]` of a sequence t (B, S, ...). On a DTensor whose sequence (dim 1) mesh
+    dims split, the rank holding the last block broadcasts its last row along
+    those mesh dims (minor first), placed as `t` is on every other dim: no rank
+    gathers `t` for one row (DTensor's `select` on a split dim would). Not
+    differentiable there (a state handed on, such as a prefill's token-shift row)."""
+    own = _split_dims(t, 1) if is_dtensor(t) else ()
+    if not own:
+        return t[:, -1]
+    mesh = t.device_mesh
+    with torch.no_grad():
+        row = t.to_local()[:, -1].contiguous()
+        for i in reversed(own):
+            dist.broadcast(row, group=mesh.get_group(i), group_src=mesh.size(i) - 1)
+    pl = [Replicate() if i in own else Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+          else p for i, p in enumerate(t.placements)]
+    shape = t.shape[:1] + t.shape[2:]
+    return DTensor.from_local(row, mesh, pl, run_check=False, shape=shape,
                               stride=torch.empty(shape, device="meta").stride())
 
 
