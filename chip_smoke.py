@@ -3026,11 +3026,23 @@ def phase_cluster(dev, smi: str, *, seed=0) -> dict:
 # by `parallel.axes.gather_on_leading` (C21 (b): the dim moved to the front, one
 # `all_gather_into_tensor` into a buffer whose leading dim is the gathered one, the
 # result a view): exactly one all-gather of the result's bytes, the output equal
-# to the input.
+# to the input. Then (ROADMAP C22) a bf16 tensor of ROW_GATHER_SHAPE placed Shard(1)
+# on that mesh, L = 4 rows before its dim, through `parallel.axes.gather_rows` (an
+# activation's gather into row slices of one contiguous buffer) and back from an
+# upstream gradient placed Partial (its row-slice reduce-scatter), under the
+# inventory: exactly the collectives that the same gather and backward record on a
+# fake one-rank world traced on the CPU (four all-gathers and four reduce-scatters
+# of a row's bytes each), the output equal to the input and the gradient equal to
+# the upstream one; the `max_memory_allocated` rise of the gather and its backward
+# printed beside that of the functional collectives DTensor's Shard(1) runs for the
+# same tensor and gradient over a mesh dim of more than one rank (`all_gather_single`
+# and `reduce_scatter_single` on dim 1: a dim-0 buffer, a dim-0 copy), which its
+# `redistribute` skips on one rank; their values equal too.
 LINT_GATE = ["-m", "repro_torch.lint"]
 LINT_RULES = 11
 COST_CELL = dict(layers=2, batch=2, seq=6144, remat="selective")
 ALLTOALL_SHAPE = (4096, 2048)
+ROW_GATHER_SHAPE = (4, 2048, 2048)
 
 
 def phase_lint(root: Path = ROOT, timeout: float = 300.0) -> list[str]:
@@ -3211,6 +3223,96 @@ def phase_alltoall(dev, smi: str, *, shape=ALLTOALL_SHAPE, backend="nccl", init_
         raise AssertionError(f"cost (d): output equal {same}, helper opened {opened}, "
                              f"closed {closed}")
     return {"recorded": recorded, "equal": same, "gathered": got}
+
+
+def _gathered_rows(mesh, x, up, route: str, dev) -> tuple:
+    """(output, input gradient, collectives recorded, `max_memory_allocated` rise or
+    None off CUDA) of `x` placed Shard(1) on `mesh` gathered to Replicate and a
+    backward from `up` placed Partial: by `axes.gather_rows` ("rows"), or by the
+    functional collectives DTensor's Shard(1) runs over a mesh dim of more than one
+    rank ("dtensor": `all_gather_single` on dim 1, a dim-0 buffer then the chunks
+    concatenated; `reduce_scatter_single` on dim 1, the chunks concatenated on dim
+    0 first), which DTensor's `redistribute` skips on a mesh dim of one rank."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.core.hlo import CollectiveInventory
+    from repro_torch.parallel.axes import gather_rows
+
+    leaf = x.clone().requires_grad_(True)
+    xd = DTensor.from_local(leaf, mesh, [Shard(1)], run_check=False)
+    g = DTensor.from_local(up, mesh, [Partial()], run_check=False)
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    scatter = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
+    inventory = CollectiveInventory()
+    if dev.type == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with inventory:
+        if route == "rows":
+            y = gather_rows(xd, (0,))
+            y.backward(g)
+            out, grad = y.to_local().detach(), leaf.grad
+        else:
+            with torch.no_grad():
+                out, grad = gather(x, 1, (mesh, 0)), scatter(up, "sum", 1, (mesh, 0))
+                out, grad = (t.wait() if hasattr(t, "wait") else t for t in (out, grad))
+    rise = None
+    if dev.type == "cuda":
+        sync()
+        rise = torch.cuda.max_memory_allocated() - base
+    return out, grad, [(o.kind, o.bytes) for o in inventory.ops], rise
+
+
+def phase_row_gather(dev, smi: str, *, shape=ROW_GATHER_SHAPE, backend="nccl", init_method=None,
+                     seed=0) -> dict:
+    """COST_NOTE (d), C22: an activation's row-slice gather and its backward on a
+    one-rank `backend` mesh under the inventory, against the same traced on a fake
+    one-rank world, and its memory beside DTensor's gather of the same tensor."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    up = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    _one_rank_group(backend, init_method)
+    try:
+        mesh = init_device_mesh(dev.type, (1,))
+        out, grad, ops, rise = _gathered_rows(mesh, x, up, "rows", dev)
+        dt_out, dt_grad, dt_ops, dt_rise = _gathered_rows(mesh, x, up, "dtensor", dev)
+    finally:
+        dist.destroy_process_group()
+    dryrun.init_fake_world(1)
+    try:
+        fake_mesh = init_device_mesh("cpu", (1,))
+        with dryrun.StepTracer() as tracer, tracer.quiet_dtensor_meta():
+            fake = torch.empty(shape, dtype=torch.bfloat16)
+            traced = _gathered_rows(fake_mesh, fake, torch.empty_like(fake), "rows",
+                                    torch.device("cpu"))[2]
+    finally:
+        dist.destroy_process_group()
+    row = x.numel() * x.element_size() // shape[0]
+    want = [("all-gather", row)] * shape[0] + [("reduce-scatter", row)] * shape[0]
+    same = torch.equal(out, x) and torch.equal(out, dt_out)
+    grad_same = torch.equal(grad, up) and torch.equal(grad, dt_grad)
+    mib = (lambda b: "not measured (no CUDA)" if b is None else f"{b / 2**20:.2f} MiB")
+    log(f"[cost] (d) axes.gather_rows of a bf16 {tuple(shape)} tensor placed Shard(1) on a "
+        f"one-rank {backend} mesh, backward from a Partial gradient: {ops} (the CPU trace: "
+        f"{traced}); output equal to the input and DTensor's: {same}; gradient equal to the "
+        f"upstream one and DTensor's: {grad_same}; max_memory_allocated rise {mib(rise)}, "
+        f"DTensor's Shard(1) gather and reduce-scatter of the same {mib(dt_rise)} ({dt_ops}) "
+        f"({smi})")
+    if ops != traced or ops != want:
+        raise AssertionError(f"cost (d): the row gather recorded {ops}, the trace {traced}, "
+                             f"not {want}")
+    if not (same and grad_same):
+        raise AssertionError(f"cost (d): row gather output equal {same}, gradient equal "
+                             f"{grad_same}")
+    return {"recorded": ops, "traced": traced, "equal": same, "grad_equal": grad_same,
+            "rise": rise, "dtensor_rise": dt_rise, "dtensor": dt_ops}
 
 
 def train_config(arch: str):
@@ -3811,6 +3913,8 @@ def main() -> None:
     inventory = phase_inventory(dev, smi, seed=args.seed, **COST_CELL)
     torch.cuda.empty_cache()
     phase_alltoall(dev, smi, seed=args.seed)
+    phase_row_gather(dev, smi, seed=args.seed)
+    torch.cuda.empty_cache()
     t_cost = time.perf_counter() - t_cost
     t_vocab = time.perf_counter()  # phase 15
     phase_vocab_split(dev, smi, seed=args.seed, **VOCAB_SPLIT)

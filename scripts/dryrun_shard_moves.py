@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Trace dry-run cells and count the Shard -> Shard moves and the Shard(d > 0) ->
-Replicate gathers each one makes.
+"""Trace dry-run cells and count the Shard -> Shard moves, the Shard(d > 0) ->
+Replicate gathers and the Partial -> Shard(d > 0) reduce-scatters each one makes.
 
   PYTHONPATH=src python scripts/dryrun_shard_moves.py --out DIR [--arch A ...]
       [--shape S ...] [--mesh single|multi|both]
@@ -17,11 +17,19 @@ DIR/moves/. Each gather that DTensor makes of a dim other than the first
 (`Shard._to_replicate_tensor` with `dim > 0`, which gathers into dim 0 and then
 concatenates the chunks along the dim: two result-sized buffers) is recorded
 beside them with its local tensor, the mesh dim's size and the innermost frame
-of `repro_torch` that asked for it. `--report` prints one markdown row a cell:
-its moves, the largest moved local tensor, the bound on what the move can
-change in the cell's peak, (mesh-dim size - 1) x that tensor, and its gathers
-on a dim > 0 with their largest result and their sites. A CPU trace of fake
-tensors: no device number. Imports nothing of JAX.
+of `repro_torch` that asked for it. So is each reduce-scatter that DTensor makes
+onto a dim other than the first (`Shard._reduce_shard_tensor` with `dim > 0`,
+which copies the partial sum into chunks along dim 0 before it reduces:
+`reduce_scatter_single`'s chunk-and-cat), with the partial tensor it is given.
+Each gather and reduce-scatter also records L, the product of the dims before
+its dim (of the local tensor, of the partial one): where L > 1 the port's own
+row-slice gather (`axes.gather_rows`) can take the move. `--report` prints one
+markdown row a cell: its moves, the largest moved local tensor, the bound on
+what the move can change in the cell's peak, (mesh-dim size - 1) x that tensor,
+its gathers and reduce-scatters on a dim > 0 (those with L > 1 in brackets)
+with their largest result and their sites; then those gathers and
+reduce-scatters summed over the cells by site. A CPU trace of fake tensors: no
+device number. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import sys
 import traceback
 from pathlib import Path
@@ -113,6 +122,7 @@ class GatherCounter:
                 n = mesh.size(mesh_dim)
                 nbytes = local_tensor.numel() * local_tensor.element_size()
                 gathers.append({"shape": list(local_tensor.shape), "dim": placement.dim,
+                                "lead": math.prod(local_tensor.shape[:placement.dim]),
                                 "dtype": str(local_tensor.dtype).removeprefix("torch."),
                                 "bytes": nbytes, "result_bytes": n * nbytes,
                                 "mesh_dim_size": n, "site": _site()})
@@ -125,6 +135,38 @@ class GatherCounter:
         placement_types.Shard._to_replicate_tensor = self._orig
 
 
+class ReduceScatterCounter:
+    """While open, records each reduce-scatter DTensor makes onto a dim other than the
+    first: `Shard._reduce_shard_tensor` of a `Shard(d)`, d > 0, with the partial
+    tensor it is given, the mesh dim's size, the result's bytes and the site."""
+
+    def __init__(self):
+        self.scatters: list[dict] = []
+
+    def __enter__(self):
+        shard = placement_types.Shard
+        self._orig = orig = shard._reduce_shard_tensor
+        scatters = self.scatters
+
+        @functools.wraps(orig)
+        def counted(placement, tensor, mesh, reduce_op, mesh_dim):
+            if type(placement) is shard and placement.dim > 0:
+                n = mesh.size(mesh_dim)
+                nbytes = tensor.numel() * tensor.element_size()
+                scatters.append({"shape": list(tensor.shape), "dim": placement.dim,
+                                 "lead": math.prod(tensor.shape[:placement.dim]),
+                                 "dtype": str(tensor.dtype).removeprefix("torch."),
+                                 "bytes": nbytes, "result_bytes": nbytes // n,
+                                 "mesh_dim_size": n, "site": _site()})
+            return orig(placement, tensor, mesh, reduce_op, mesh_dim)
+
+        shard._reduce_shard_tensor = counted
+        return self
+
+    def __exit__(self, *exc):
+        placement_types.Shard._reduce_shard_tensor = self._orig
+
+
 def sweep(args) -> None:
     out = Path(args.out)
     (out / "moves").mkdir(parents=True, exist_ok=True)
@@ -134,25 +176,28 @@ def sweep(args) -> None:
         for arch in args.arch:
             for shape in args.shape:
                 for mp in meshes:
-                    with MoveCounter() as counter, GatherCounter() as gathers:
+                    with MoveCounter() as counter, GatherCounter() as gathers, \
+                            ReduceScatterCounter() as scatters:
                         rec = dryrun.run_cell(arch, shape, mp, str(out), force=True)
                     if rec["status"] == "skipped":
                         continue
                     name = f"{arch}__{shape}__{rec['mesh']}.json"
                     (out / "moves" / name).write_text(json.dumps(
                         {"status": rec["status"], "moves": counter.moves,
-                         "gathers": gathers.gathers}, indent=1))
+                         "gathers": gathers.gathers, "scatters": scatters.scatters}, indent=1))
                     print(f"  {len(counter.moves)} Shard -> Shard moves, "
-                          f"{len(gathers.gathers)} Shard(d > 0) -> Replicate gathers")
+                          f"{len(gathers.gathers)} Shard(d > 0) -> Replicate gathers, "
+                          f"{len(scatters.scatters)} Partial -> Shard(d > 0) reduce-scatters")
     finally:
         dist.destroy_process_group()
 
 
 def report(root: Path) -> None:
     print("| cell | mesh | status | Shard -> Shard moves | largest moved local tensor "
-          "| bound on the peak's change GiB | Shard(d > 0) -> Replicate gathers "
-          "| largest result GiB | sites |")
-    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- |")
+          "| bound on the peak's change GiB | Shard(d > 0) -> Replicate gathers (L > 1) "
+          "| largest result GiB | sites | Partial -> Shard(d > 0) reduce-scatters (L > 1) "
+          "| largest input GiB | sites |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |")
     for path in sorted((root / "moves").glob("*.json")):
         arch, shape, mesh = path.stem.split("__")
         rec = json.loads(path.read_text())
@@ -161,11 +206,38 @@ def report(root: Path) -> None:
         largest = (f"{tuple(big['shape'])} {big['dtype']} over {big['mesh_dim_size']}"
                    if big else "—")
         bound = ((big["mesh_dim_size"] - 1) * big["bytes"] / GIB) if big else 0.0
-        gathers = rec.get("gathers", [])
-        top = max((g["result_bytes"] for g in gathers), default=0) / GIB
-        sites = ", ".join(sorted({g["site"] for g in gathers})) or "—"
+        cols = []
+        for key, size in (("gathers", "result_bytes"), ("scatters", "bytes")):
+            found = rec.get(key, [])
+            rows = sum(g.get("lead", 0) > 1 for g in found)
+            top = max((g[size] for g in found), default=0) / GIB
+            sites = ", ".join(sorted({g["site"] for g in found})) or "—"
+            cols.append(f"{len(found)} ({rows}) | {top:.3f} | {sites}")
         print(f"| {arch} {shape} | {mesh} | {rec['status']} | {len(moves)} | {largest} "
-              f"| {bound:.3f} | {len(gathers)} | {top:.3f} | {sites} |")
+              f"| {bound:.3f} | {' | '.join(cols)} |")
+    totals(root)
+
+
+def totals(root: Path) -> None:
+    """The gathers and reduce-scatters on a dim > 0 of every cell under `root`, summed
+    by site: count, those with L > 1, and the cells they occur in."""
+    sites: dict = {}
+    for path in sorted((root / "moves").glob("*.json")):
+        rec = json.loads(path.read_text())
+        for key in ("gathers", "scatters"):
+            for g in rec.get(key, []):
+                row = sites.setdefault((key, g["site"]), [0, 0, set()])
+                row[0] += 1
+                row[1] += g.get("lead", 0) > 1
+                row[2].add(path.stem)
+    print("\n| kind | site | count | L > 1 | cells |")
+    print("| --- | --- | --- | --- | --- |")
+    for key in ("gathers", "scatters"):
+        rows = {site: v for (k, site), v in sites.items() if k == key}
+        for site, (n, lead, cells) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+            print(f"| {key} | {site} | {n} | {lead} | {len(cells)} |")
+        print(f"| {key} | all | {sum(v[0] for v in rows.values())} "
+              f"| {sum(v[1] for v in rows.values())} | {len(set().union(*(v[2] for v in rows.values())))} |")
 
 
 def main(argv=None) -> None:

@@ -28,13 +28,19 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import distribute_tensor
 
-from repro_torch.parallel.axes import is_dtensor, whole
+from repro_torch.parallel.axes import is_dtensor
 from repro_torch.train.tree import paths, tree_map
 
 
 def _writer() -> bool:
     """Whether this process writes: rank 0 of a process group, or the only process."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _full(t):
+    """A DTensor's full value, the same on every rank (DTensor's `full_tensor`);
+    anything else as is."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def _to_numpy(t) -> tuple[np.ndarray, str]:
@@ -138,8 +144,10 @@ class CheckpointManager:
     def save(self, step: int, tree, *, async_: bool = True) -> None:
         self.wait()
         # copy to the host before handing over, so the train loop may update the
-        # device tensors in place at once; a DTensor leaf gathered whole first
-        host_tree = tree_map(lambda t: whole(torch.as_tensor(t)).detach().to("cpu", copy=True),
+        # device tensors in place at once; a DTensor leaf gathered whole first by
+        # DTensor (a weight has thousands of rows before its split dim: `axes.whole`'s
+        # row slices would make as many calls)
+        host_tree = tree_map(lambda t: _full(torch.as_tensor(t)).detach().to("cpu", copy=True),
                              tree)
         if not _writer():
             return

@@ -147,7 +147,8 @@ class StepTracer(FakeTensorMode):
     it has, until it is freed. A functional collective's result is one storage:
     `_c10d_functional.wait_tensor` gives back its input, as a process group's
     does, where FakeTensorMode would give a new tensor of its own (two storages
-    for one result, the first held by DTensor's async wrapper)."""
+    for one result, the first held by DTensor's async wrapper); so does a
+    collective's `out=` variant its `out`."""
 
     def __init__(self):
         super().__init__(allow_non_fake_inputs=True)
@@ -219,6 +220,10 @@ class StepTracer(FakeTensorMode):
             out = super().dispatch(func, types, args, kwargs)
         finally:
             self._quiet -= inner
+        if inner and "out" in kwargs:
+            # a collective writing into a given buffer hands that buffer back, as a
+            # process group's does; FakeTensorMode's makes a new tensor
+            return kwargs["out"]
         if self._quiet or any(isinstance(t, DTensor) for t in tensors):
             return out  # the DTensor level: its local ops come through here too
         packet = func.overloadpacket

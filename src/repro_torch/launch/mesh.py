@@ -14,6 +14,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch import resolve_device
 from repro_torch.parallel.axes import ShardingRules, make_rules, mesh_sizes
 
 
@@ -21,17 +22,17 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device_type: str | 
     """A DeviceMesh of `shape` named `axes` over the first prod(shape) ranks.
 
     Raises when the world is smaller than the mesh, as JAX's does when it has
-    fewer devices. `device_type` ("cuda" or "cpu") defaults to CUDA where
-    there is a card.
+    fewer devices. `device_type` ("cuda" or "cpu") defaults to CUDA, and a CUDA
+    mesh raises where there is no card (`resolve_device`: no silent CPU mesh).
     """
     n = math.prod(shape)
-    device_type = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
     if not dist.is_initialized() and "RANK" not in os.environ:  # one process, not torchrun's
         world = 1
     else:
         world = dist.get_world_size() if dist.is_initialized() else int(os.environ["WORLD_SIZE"])
     if n > world:
         raise ValueError(f"mesh {shape} needs {n} devices, have {world}")
+    device_type = resolve_device(device_type).type
     if not dist.is_initialized():  # torchrun's environment: gloo on the CPU, NCCL on CUDA
         dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
         return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))

@@ -68,9 +68,9 @@ from repro_torch.models.layers import (VocabParallelCE, apply_norm, chunk_ce, em
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.params import (FAMILIES, count_params, init_params, layer_params,
                                        n_head_layers, param_defs, param_specs, unstacked_layers)
-from repro_torch.parallel.axes import (activation_pspec, current_mesh, is_dtensor, logical_spec,
-                                       on_local, on_shards, placements, shard, shard_range, whole,
-                                       write, zeros)
+from repro_torch.parallel.axes import (activation_pspec, current_mesh, is_dtensor, last_row,
+                                       logical_spec, on_local, on_shards, placements, shard,
+                                       shard_range, whole, write, zeros)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 # the slot axis of every cache leaf, by the part of the cache it is in
@@ -494,7 +494,7 @@ class Model:
         cache = self.init_cache(B, max_len, x.device, cp=cp)
         for apply, p, c in self._blocks(params, cache):
             x, _ = apply(self.cfg, p, x, "prefill", c, max_len=max_len, kernels=self.kernels)
-        x = shard(x, "dp", None, None)[:, -1]
+        x = last_row(x)  # on a mesh the last block's row, with no gather of the sequence
         x = _norm(params["final_norm"], x.contiguous(), self.kernels)
         cache["pos"] = S
         return whole(self._head(params, x)), cache

@@ -31,9 +31,11 @@ and `block_of` give a rank's part of a split dim; `take_rows` moves a block
 of a batch's rows to the ranks that need them, point to point; `shift_rows`
 shifts a split sequence by one row, each rank receiving the row its block
 lacks from its neighbour, and `last_row` takes a split sequence's last row
-without gathering it. `shard_param` is `shard` for a weight at its use, which
-gathers a dim other than the first into one buffer whose leading dim is the
-gathered one (`gather_dims`).
+without gathering it. `shard` (and `whole`) move an activation by `move`, which
+gathers a dim d > 0 into row slices of one contiguous buffer (`gather_rows`)
+and reduces a partial sum onto such a dim row slice by row slice; `shard_param`
+is `shard` for a weight at its use, which gathers a dim other than the first
+into one buffer whose leading dim is the gathered one (`gather_dims`).
 `lse_combine` joins the partial outputs of ranks that hold parts of a KV
 cache's length, as flash-decode joins its splits, and `ce_combine` the CE's
 parts of ranks that hold blocks of the vocabulary; both also join parts on a
@@ -201,35 +203,85 @@ def activation_pspec(names, shape: tuple[int, ...], mesh) -> tuple:
 
 def shard(x, *names):
     """Redistribute a DTensor to the placements of `names` under the current rules
-    (`activation_pspec`); the identity on anything else."""
+    (`activation_pspec`); the identity on anything else. Each gather of a dim d > 0
+    whose shard has more than one row before d (L > 1: a (B_local, S, D) hidden
+    state gathered on S) fills row slices of one contiguous buffer
+    (`gather_rows`), and each reduce-scatter of a partial sum onto a dim d > 0 (an
+    output projection's partial sums onto the sequence) reduces row slices of it
+    as it stands; the other moves are DTensor's (`move`)."""
     mesh = current_mesh()
     if mesh is None or not is_dtensor(x):
         return x
-    return x.redistribute(x.device_mesh,
-                          placements(activation_pspec(names, tuple(x.shape), mesh), x.device_mesh))
+    return move(x, placements(activation_pspec(names, tuple(x.shape), mesh), x.device_mesh))
+
+
+def move(t, pl):
+    """An activation, DTensor `t`, redistributed to placements `pl` as `shard` moves
+    it: its gathers and reduce-scatters of a dim > 0 in row slices
+    (`_move_last`), one collective a row of the L before the dim, so for a dim
+    with few rows before it (a batch's, not a batch's and a sequence's)."""
+    return _move_last(t, tuple(pl), rows=True)
 
 
 def shard_param(w, *names):
     """`shard` of a weight at its use, each gather of a dim other than the first made
-    into one buffer (`gather_dims`): the weight's users, matmuls and einsums, read
-    the permuted view as it is. (An activation's would not: a matmul flattens a
-    (B, S, D) view gathered on S into (B S, D) by a copy, so `shard` leaves
-    activations to DTensor's gather.) DTensor redistributes the other mesh dims
-    first, so that the gathers are the last step and each gradient's reduction
-    onto the shards is a reduce-scatter, as DTensor's backward makes it (a
-    redistribution after them would all-reduce it first)."""
+    into one buffer whose leading dim is the gathered one (`gather_dims`): the
+    weight's users, matmuls and einsums, read the permuted view as it is. (An
+    activation's would not: a matmul flattens a (B, S, D) view gathered on S into
+    (B S, D) by a copy, so `shard` gathers activations into row slices.)"""
     mesh = current_mesh()
     if mesh is None or not is_dtensor(w):
         return w
-    dm = w.device_mesh
-    pl = placements(activation_pspec(names, tuple(w.shape), mesh), dm)
-    mid = tuple(q if type(q) is Shard and q.dim > 0 and p.is_replicate() and dm.size(i) > 1 else p
-                for i, (p, q) in enumerate(zip(pl, w.placements)))
-    if mid == pl:  # nothing to gather on a dim > 0: `shard`'s redistribution
-        return w.redistribute(dm, pl)
-    if mid != tuple(w.placements):
-        w = w.redistribute(dm, mid)
-    return gather_dims(w, pl)
+    return _move_last(w, placements(activation_pspec(names, tuple(w.shape), mesh),
+                                    w.device_mesh), rows=False)
+
+
+def _scattered_dims(t, pl) -> tuple[int, ...]:
+    """The mesh dims of `t`'s Partial -> Shard(d) moves toward placements `pl` with
+    d > 0 over more than one rank, where no other mesh dim splits d, in `t` or in
+    `pl`. The others are left to `redistribute`."""
+    def alone(i, d):
+        return not any(type(r) is Shard and r.dim == d
+                       for j, r in (*enumerate(pl), *enumerate(t.placements)) if j != i)
+    return tuple(i for i, (p, q) in enumerate(zip(pl, t.placements))
+                 if q.is_partial() and type(p) is Shard and p.dim > 0
+                 and t.device_mesh.size(i) > 1 and alone(i, p.dim))
+
+
+def _move_last(t, pl, rows: bool):
+    """DTensor `t` redistributed to placements `pl`, each Shard(d) -> Replicate move
+    with d > 0 over more than one rank made into one buffer: with `rows` by
+    `_GatherRows` where some such move's shard has L > 1 rows before d (else
+    DTensor's gather, whose dim-0 buffer then is the result's layout; DTensor's
+    too for a nested split into uneven parts), and each Partial -> Shard(d) move
+    with d > 0 over more than one rank, d split by no other mesh dim, by
+    `_ScatterRows` (DTensor's reduce-scatter copies the partial sum in chunks
+    along dim 0 first, at any L); without `rows`, the gathers by `gather_dims`.
+    DTensor redistributes the other mesh dims first, so that these moves are the
+    last step and each gradient's reduction onto the shards is a reduce-scatter,
+    as DTensor's backward makes it (a redistribution after them would all-reduce
+    it first)."""
+    dm = t.device_mesh
+    scatters = _scattered_dims(t, pl) if rows else ()
+    mid = tuple(q if i in scatters or (type(q) is Shard and q.dim > 0 and p.is_replicate()
+                                       and dm.size(i) > 1) else p
+                for i, (p, q) in enumerate(zip(pl, t.placements)))
+    if mid == pl:  # nothing to gather or scatter on a dim > 0: DTensor's redistribution
+        return t.redistribute(dm, pl)
+    if mid != tuple(t.placements):
+        t = t.redistribute(dm, mid)
+    if scatters:
+        t = _ScatterRows.apply(t, tuple((i, pl[i].dim) for i in scatters))
+    if not rows:
+        t = gather_dims(t, pl)
+    else:
+        dims = _gathered_dims(t, pl)
+        local = t.to_local().shape
+        moves = _moves(t, dims)
+        # one row (or a nested split of uneven parts) is left to DTensor's gather below
+        if moves is not None and any(math.prod(local[:t.placements[i].dim]) > 1 for i in dims):
+            t = _GatherRows.apply(t, moves)
+    return t if tuple(t.placements) == tuple(pl) else t.redistribute(dm, pl)
 
 
 class _GatherOnLeading(torch.autograd.Function):
@@ -270,29 +322,44 @@ class _GatherOnLeading(torch.autograd.Function):
         return g.redistribute(ctx.mesh, pl), None
 
 
-def gather_on_leading(t, mesh_dims):
-    """A DTensor `t` placed Shard(d), d > 0, on each of `mesh_dims` (each the innermost
-    mesh dim then left splitting its d, in order) as Replicate there, by
-    `_GatherOnLeading`: one result-sized buffer a move, one autograd node.
-    Refuses a nested split of d that the outer mesh dims do not divide evenly."""
+def _moves(t, mesh_dims) -> tuple | None:
+    """((mesh dim, size of its d as that mesh dim splits it), ...) of a DTensor `t`
+    placed Shard(d), d > 0, on each of `mesh_dims` (each the innermost mesh dim
+    then left splitting its d, in order); None for a nested split of d that the
+    outer mesh dims do not divide evenly."""
     pl, moves = list(t.placements), []
     for i in mesh_dims:
         d = pl[i].dim
         outer = math.prod(t.device_mesh.size(j) for j, q in enumerate(pl[:i])
                           if type(q) is Shard and q.dim == d)
         if t.shape[d] % outer:
-            raise ValueError(f"dim {d} of {tuple(t.shape)} is split unevenly before mesh dim "
-                             f"{i}: {t.placements}")
+            return None
         moves.append((i, t.shape[d] // outer))
         pl[i] = Replicate()
-    return _GatherOnLeading.apply(t, tuple(moves))
+    return tuple(moves)
 
 
-def gather_dims(t, pl):
-    """`t` with each of its Shard(d) -> Replicate moves toward placements `pl` made for
-    d > 0 over more than one rank, innermost mesh dim first, by `gather_on_leading`
-    (one result-sized buffer a move). The others are left to `redistribute`: a
-    move of dim 0, and one over a mesh dim of size 1 (no gather: DTensor's no-op)."""
+def _even_moves(t, mesh_dims) -> tuple:
+    """`_moves`, refusing a nested split of uneven parts."""
+    moves = _moves(t, mesh_dims)
+    if moves is None:
+        raise ValueError(f"a dim of {tuple(t.shape)} is split unevenly before one of mesh dims "
+                         f"{tuple(mesh_dims)}: {t.placements}")
+    return moves
+
+
+def gather_on_leading(t, mesh_dims):
+    """A DTensor `t` placed Shard(d), d > 0, on each of `mesh_dims` (`_moves`) as
+    Replicate there, by `_GatherOnLeading`: one result-sized buffer a move, one
+    autograd node."""
+    return _GatherOnLeading.apply(t, _even_moves(t, mesh_dims))
+
+
+def _gathered_dims(t, pl) -> list[int]:
+    """The mesh dims, innermost first, of `t`'s Shard(d) -> Replicate moves toward
+    placements `pl` with d > 0 over more than one rank, each the innermost mesh
+    dim then left splitting its d. The others are left to `redistribute`: a move
+    of dim 0, and one over a mesh dim of size 1 (no gather: DTensor's no-op)."""
     cur, dims = list(t.placements), []
     for i in reversed(range(len(pl))):
         p = cur[i]
@@ -300,7 +367,165 @@ def gather_dims(t, pl):
                 and not any(type(q) is Shard and q.dim == p.dim for q in cur[i + 1:]):
             dims.append(i)
             cur[i] = Replicate()
+    return dims
+
+
+def gather_dims(t, pl):
+    """`t` with each of its Shard(d) -> Replicate moves toward placements `pl` made for
+    d > 0 over more than one rank (`_gathered_dims`) by `gather_on_leading` (one
+    result-sized buffer a move); `t` where there is none."""
+    dims = _gathered_dims(t, pl)
     return gather_on_leading(t, dims) if dims else t
+
+
+def _rows_gathered(local, d: int, n: int, size: int, group: str):
+    """This rank's `local` shard of a dim d > 0 of `size` gathered over the n ranks of
+    `group` into one contiguous buffer of the result's layout: each of the L rows
+    before d (`local.view(L, -1)[i]`, contiguous) gathered into its slice of the
+    result (the ranks' chunks contiguous in it, in rank order), one
+    `all_gather_into_tensor_out` a row. An uneven split is padded as DTensor pads
+    it (every rank's shard to torch.chunk's size) and the result narrowed."""
+    rows = -(-size // n)
+    if local.shape[d] < rows:
+        pad = [0, 0] * (local.dim() - d - 1) + [0, rows - local.shape[d]]
+        local = F.pad(local, pad)
+    local = local.contiguous()
+    L = math.prod(local.shape[:d])
+    shape = list(local.shape)
+    shape[d] = n * rows
+    out = local.new_empty(shape)
+    src, dst = local.view(L, -1), out.view(L, -1)
+    for i in range(L):
+        torch.ops._c10d_functional.all_gather_into_tensor_out(src[i], n, group, out=dst[i])
+    for i in range(L):
+        torch.ops._c10d_functional.wait_tensor(dst[i])
+    return out.narrow(d, 0, size)
+
+
+def _rows_scattered(full, d: int, n: int, size: int, op: str, group: str, rank: int):
+    """This rank's shard of dim d > 0 of a partial sum `full` (dim d of `size`, whole
+    over the n ranks of `group`), reduced by `op` over them: each of the L rows
+    before d reduce-scattered from its contiguous slice of `full` into its slice
+    of the shard, one `reduce_scatter_tensor_out` a row, with no copy of `full`
+    (DTensor's `reduce_scatter_single` chunks it and concatenates the chunks on
+    dim 0 first). An uneven split is padded as DTensor pads it and the shard
+    narrowed to the rank's own size."""
+    rows = -(-size // n)
+    if size < n * rows:
+        pad = [0, 0] * (full.dim() - d - 1) + [0, n * rows - size]
+        full = F.pad(full, pad)
+    full = full.contiguous()
+    L = math.prod(full.shape[:d])
+    shape = list(full.shape)
+    shape[d] = rows
+    out = full.new_empty(shape)
+    src, dst = full.view(L, -1), out.view(L, -1)
+    for i in range(L):
+        torch.ops._c10d_functional.reduce_scatter_tensor_out(src[i], op, n, group, out=dst[i])
+    for i in range(L):
+        torch.ops._c10d_functional.wait_tensor(dst[i])
+    return out.narrow(d, 0, min(rows, max(size - rank * rows, 0)))
+
+
+class _GatherRows(torch.autograd.Function):
+    """A DTensor's Shard(d) -> Replicate moves, d > 0, on the mesh dims of `moves`
+    (`_moves`, innermost first), each gathered into row slices of one contiguous
+    buffer of the result's layout (`_rows_gathered`): the result is contiguous,
+    so a matmul flattens it without a copy, and there is no dim-0 buffer beside it
+    (DTensor gathers into dim 0 and then concatenates the chunks along d). The
+    values are DTensor's. One autograd node for all the moves; the backward is
+    DTensor's `redistribute` backward: the gradient redistributed to the input's
+    placements (the other mesh dims first, by DTensor), each moved mesh dim,
+    outermost first, by its local chunk where the gradient is replicated there and
+    by a row-slice reduce-scatter (`_rows_scattered`) where it is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, t, moves):
+        mesh, pl = t.device_mesh, list(t.placements)
+        ctx.mesh, ctx.placements, ctx.moves = mesh, tuple(pl), moves
+        out = t.to_local()
+        for mesh_dim, size in moves:
+            out = _rows_gathered(out, pl[mesh_dim].dim, mesh.size(mesh_dim), size,
+                                 mesh.get_group(mesh_dim).group_name)
+            pl[mesh_dim] = Replicate()
+        return DTensor.from_local(out, mesh, pl, run_check=False, shape=t.shape, stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        # as DTensor's backward: a gradient already whole where the input was a
+        # partial sum stays whole
+        pl = tuple(Replicate() if p.is_partial() and not q.is_partial() else p
+                   for p, q in zip(ctx.placements, g.placements))
+        moved = [i for i, _ in ctx.moves]
+        if not all(g.placements[i].is_partial() or g.placements[i].is_replicate() for i in moved):
+            return g.redistribute(mesh, pl), None
+        mid = tuple(g.placements[i] if i in moved else p for i, p in enumerate(pl))
+        if mid != tuple(g.placements):
+            g = g.redistribute(mesh, mid)
+        local = g.to_local()
+        for mesh_dim, size in reversed(ctx.moves):
+            d, n, p = pl[mesh_dim].dim, mesh.size(mesh_dim), g.placements[mesh_dim]
+            rank = mesh.get_local_rank(mesh_dim)
+            if p.is_partial():
+                local = _rows_scattered(local, d, n, size, p.reduce_op,
+                                        mesh.get_group(mesh_dim).group_name, rank)
+            else:  # DTensor's replicate-to-shard: the rank's chunk, a copy of its own
+                rows = -(-size // n)
+                local = local.narrow(d, min(rank * rows, size),
+                                     min(rows, max(size - rank * rows, 0)))
+                local = local.clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, mesh, pl, run_check=False, shape=g.shape,
+                                  stride=g.stride()), None
+
+
+def gather_rows(t, mesh_dims):
+    """A DTensor `t` placed Shard(d), d > 0, on each of `mesh_dims` (`_moves`) as
+    Replicate there, by `_GatherRows`: each move one contiguous result-sized buffer
+    filled row slice by row slice, one autograd node; a partial-sum gradient is
+    reduce-scattered row slice by row slice in place of DTensor's dim-0 copy."""
+    return _GatherRows.apply(t, _even_moves(t, mesh_dims))
+
+
+class _ScatterRows(torch.autograd.Function):
+    """A DTensor's Partial -> Shard(d) moves, d > 0, on the mesh dims of `moves`
+    ((mesh dim, d), d split by no other mesh dim), each reduce-scattered row slice
+    by row slice from the partial sum as it stands into one contiguous shard
+    (`_rows_scattered`), with no copy of the partial sum (DTensor's
+    `reduce_scatter_single` chunks it and concatenates the chunks on dim 0). The
+    values are DTensor's. The backward is DTensor's: the gradient placed as the
+    input with each partial sum whole (Replicate), each moved mesh dim gathered
+    into row slices (`_rows_gathered`) where the gradient is split there as the
+    output is, the other mesh dims (and any other placement) by DTensor first."""
+
+    @staticmethod
+    def forward(ctx, t, moves):
+        mesh, pl = t.device_mesh, list(t.placements)
+        ctx.mesh, ctx.placements, ctx.moves = mesh, tuple(pl), moves
+        out = t.to_local()
+        for mesh_dim, d in moves:
+            out = _rows_scattered(out, d, mesh.size(mesh_dim), t.shape[d], pl[mesh_dim].reduce_op,
+                                  mesh.get_group(mesh_dim).group_name,
+                                  mesh.get_local_rank(mesh_dim))
+            pl[mesh_dim] = Shard(d)
+        return DTensor.from_local(out, mesh, pl, run_check=False, shape=t.shape, stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        pl = tuple(Replicate() if p.is_partial() and not q.is_partial() else p
+                   for p, q in zip(ctx.placements, g.placements))
+        if not all(g.placements[i] == Shard(d) for i, d in ctx.moves):
+            return g.redistribute(mesh, pl), None
+        mid = tuple(g.placements[i] if i in dict(ctx.moves) else p for i, p in enumerate(pl))
+        if mid != tuple(g.placements):
+            g = g.redistribute(mesh, mid)
+        local = g.to_local()
+        for mesh_dim, d in reversed(ctx.moves):
+            local = _rows_gathered(local, d, mesh.size(mesh_dim), g.shape[d],
+                                   mesh.get_group(mesh_dim).group_name)
+        return DTensor.from_local(local, mesh, pl, run_check=False, shape=g.shape,
+                                  stride=g.stride()), None
 
 
 def grad_placements(arg_placements, split) -> tuple:
@@ -615,6 +840,10 @@ def ce_combine(lse, gold, top, arg, mesh=None, dims=()):
 
 def whole(t):
     """A DTensor as the plain tensor of its full value, the same on every rank
-    (differentiable); anything else as is."""
-    return t.full_tensor() if is_dtensor(t) else t
+    (differentiable): `full_tensor`, each gather of a dim d > 0 whose shard has
+    L > 1 rows before d into row slices of one buffer (`move`, as `shard`'s);
+    anything else as is."""
+    if not is_dtensor(t):
+        return t
+    return move(t, (Replicate(),) * t.device_mesh.ndim).to_local()
 

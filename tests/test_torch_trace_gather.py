@@ -135,8 +135,8 @@ def test_traced_gather_on_a_later_dim_holds_one_result(dim, fake_world):
 def test_shard_param_takes_the_gather_for_a_later_dim(fake_world):
     """`axes.shard_param` gathering a weight's dim > 0 (a ZeRO-3 weight's ff dim, as
     MoE's experts gather theirs at use) goes through the one-buffer gather, then
-    DTensor's redistribution for the other mesh dims; `axes.shard` leaves an
-    activation to DTensor's gather, whose result is contiguous (a matmul over the
+    DTensor's redistribution for the other mesh dims; `axes.shard` gathers an
+    activation into row slices, whose result is contiguous (a matmul over the
     permuted view would copy it back)."""
     fake_world(4)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
@@ -200,6 +200,13 @@ def test_moe_experts_use_the_gathered_weights_without_a_copy(fake_world):
     assert [n for n, _ in tracer.new if n >= weight] == [weight] * 3, tracer.new
 
 
+def _dtensor_shard(t, *names):
+    """`axes.shard`'s placements, reached by DTensor's own `redistribute`."""
+    mesh = axes.current_mesh()
+    return t.redistribute(t.device_mesh, axes.placements(
+        axes.activation_pspec(names, tuple(t.shape), mesh), t.device_mesh))
+
+
 @pytest.mark.parametrize("nested", [False, True], ids=["data", "pod-data"])
 def test_moe_experts_dispatch_dtensors_collectives_forward_and_backward(nested, fake_world,
                                                                         monkeypatch):
@@ -228,7 +235,7 @@ def test_moe_experts_dispatch_dtensors_collectives_forward_and_backward(nested, 
     ops, grads, peaks = {}, {}, {}
     for route in ("port", "dtensor"):
         if route == "dtensor":
-            monkeypatch.setattr(moe, "shard_param", axes.shard)
+            monkeypatch.setattr(moe, "shard_param", _dtensor_shard)
         tracer, inventory = dryrun.StepTracer(), hlo.CollectiveInventory()
         with axes.use_mesh(mesh, rules), tracer, tracer.quiet_dtensor_meta():
             p = {"wi": _placed(mesh, (E // 2, D, ff), (E, D, F), [*zero, Shard(0)]),
